@@ -1,0 +1,602 @@
+"""Trace-driven emulator of the disaggregated rack (§7 methodology).
+
+The paper replays PIN-captured memory traces through MIND, GAM and
+FastSwap on a real rack.  We replay the statistically-matched traces of
+:mod:`repro_torch.core.traces` through behavioural models of the same three
+systems plus the paper's two simulated variants:
+
+  * ``mind``       — full in-network MMU (this work), TSO.
+  * ``mind-pso``   — §7.1 simulated PSO relaxation: remote writes retire
+                     asynchronously; reads and queueing remain.
+  * ``mind-pso+``  — PSO plus infinite switch directory capacity.
+  * ``gam``        — compute-centric software DSM baseline (GAM [34]):
+                     distributed directory at compute blades, software
+                     overhead on every access, PSO writes.
+  * ``fastswap``   — swap-based, single-blade, no sharing (FastSwap [27]).
+
+Each emulated thread owns a logical clock; per-access latency from the
+:class:`NetworkModel` advances it.  Reported performance is
+``total_accesses / max_thread_clock`` (inverse runtime, as in Fig. 6).
+
+System-specific behaviour — the per-access step, private state, the
+PSO flag, epoch side effects and which batched engine replays it —
+lives in the per-system model layer (:mod:`repro_torch.core.systems`); the
+rack itself never branches on the system name.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from repro_torch.core import faults as flt
+from repro_torch.core.control_plane import ControlPlane
+from repro_torch.core.network_model import NetworkModel
+from repro_torch.core.switch import InNetworkMMU, ShardMap, make_mmu
+from repro_torch.core.systems import SYSTEMS, make_model
+from repro_torch.core.traces import Trace
+from repro_torch.core.types import (
+    PAGE_SIZE,
+    EpochStats,
+    MemAccess,
+    NetworkConstants,
+    Perm,
+)
+from repro_torch.telemetry import events as tev
+
+
+@dataclass
+class EmulationResult:
+    system: str
+    workload: str
+    num_blades: int
+    threads_per_blade: int
+    runtime_us: float
+    performance: float  # accesses per us (inverse runtime x accesses)
+    stats: EpochStats
+    directory_timeline: list[int] = field(default_factory=list)
+    epoch_reports: list = field(default_factory=list)
+    latency_breakdown_us: dict[str, float] = field(default_factory=dict)
+    transition_latencies: dict[str, list[float]] = field(default_factory=dict)
+    total_thread_us: float = 0.0  # sum of all per-thread clock time
+    engine: str = "scalar"  # which data-plane engine produced this result
+    # Wall-clock seconds per engine phase (batched engine only): host
+    # pre-passes / scheduling / device replay / latency reconstruction /
+    # epoch control — the per-phase perf trajectory BENCH_*.json tracks.
+    phase_times: dict = field(default_factory=dict)
+    # Multi-switch (sharded-directory) racks: how many switch shards the
+    # directory was partitioned across, the per-shard access counts
+    # (accesses homed at each shard, faults included), and how many
+    # accesses actually traversed the switch-to-switch link (home shard
+    # != ingress switch, excluding pure local hits and faults — exactly
+    # the accesses that paid `switch_to_switch_us`).
+    num_shards: int = 1
+    shard_accesses: list[int] = field(default_factory=list)
+    cross_shard_accesses: int = 0
+    # Online shard rebalancing (decentralized control plane): one report
+    # per epoch that migrated blocks, with the migrated entry count and
+    # the stop-the-world switch-to-switch latency charged.
+    rebalance_reports: list = field(default_factory=list)
+    # The telemetry plane that observed this run (repro_torch.telemetry.Telemetry)
+    # when one was attached to the rack; None otherwise.
+    telemetry: object = None
+    # Fault plane (repro_torch.core.faults): one FaultReport per fired fault
+    # (switch kills, blade kills/restores) in firing order.  Accounting
+    # lives here, outside EpochStats, so faulted replays converge to
+    # the fault-free run's coherence statistics.
+    fault_reports: list = field(default_factory=list)
+
+    @property
+    def mean_access_us(self) -> float:
+        # Mean latency is busy thread-time over accesses.  (runtime_us is
+        # the *max* thread clock; multiplying it by the thread count would
+        # overstate the mean whenever threads run concurrently.)
+        return self.total_thread_us / max(1, self.stats.accesses)
+
+    def summary(self) -> str:
+        """Aligned human-readable table — the interactive-debugging view."""
+        rows = [
+            ("system", self.system), ("engine", self.engine),
+            ("workload", self.workload),
+            ("blades x threads", f"{self.num_blades} x {self.threads_per_blade}"),
+            ("runtime_us", f"{self.runtime_us:.3f}"),
+            ("performance", f"{self.performance:.4f} acc/us"),
+            ("mean_access_us", f"{self.mean_access_us:.4f}"),
+        ]
+        if self.num_shards > 1:
+            rows.append(("shards", str(self.num_shards)))
+            rows.append(("shard_accesses", str(self.shard_accesses)))
+            rows.append(("cross_shard_accesses", str(self.cross_shard_accesses)))
+        lines = [f"EmulationResult ({self.engine})"]
+        width = max(len(k) for k, _ in rows)
+        lines += [f"  {k:<{width}}  {v}" for k, v in rows]
+        lines.append("  -- stats " + "-" * 30)
+        lines += ["  " + ln for ln in self.stats.summary().splitlines()[1:]]
+        if self.phase_times:
+            lines.append("  -- phase_times (wall s) " + "-" * 15)
+            pw = max(len(k) for k in self.phase_times)
+            lines += [f"  {k:<{pw}}  {v:.5f}"
+                      for k, v in self.phase_times.items()]
+        if self.telemetry is not None:
+            counts = self.telemetry.recorder.counts_by_kind()
+            lines.append("  -- flight recorder " + "-" * 20)
+            lines.append(f"  events={self.telemetry.recorder.total_emitted} "
+                         f"(in ring: {len(self.telemetry.recorder)}, "
+                         f"dropped: {self.telemetry.recorder.dropped})")
+            kw = max((len(k) for k in counts), default=0)
+            lines += [f"  {k:<{kw}}  {v}" for k, v in sorted(counts.items())]
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return (f"<EmulationResult {self.system}/{self.engine} "
+                f"{self.workload!r} acc={self.stats.accesses} "
+                f"runtime_us={self.runtime_us:.1f} "
+                f"perf={self.performance:.3f}>")
+
+
+class DisaggregatedRack:
+    """One emulated rack: N compute blades x M memory blades + switch."""
+
+    def __init__(
+        self,
+        system: str = "mind",
+        num_compute_blades: int = 1,
+        threads_per_blade: int = 10,
+        num_memory_blades: int = 8,
+        cache_bytes_per_blade: int = 512 << 20,  # 512 MB, ~25% of footprint (§7)
+        max_directory_entries: int = 30_000,
+        initial_region_log2: int = 14,  # 16 KB (§7)
+        max_region_log2: int = 21,  # 2 MB
+        epoch_us: float = 10_000.0,
+        splitting_enabled: bool = True,
+        constants: NetworkConstants | None = None,
+        downgrade_keeps_copy: bool = False,
+        gam_sw_cores: int = 4,
+        engine: str = "scalar",
+        engine_options: dict | None = None,
+        directory_eviction: str = "lru",
+        telemetry=None,
+        durable_writebacks: bool = False,
+        alloc_policy: str = "first_fit",
+    ):
+        assert system in SYSTEMS
+        assert engine in ("scalar", "batched")
+        self.system = system
+        self.engine = engine
+        self.engine_options = dict(engine_options or {})
+        # Multi-switch sharding (overridden by ShardedRack): a single
+        # switch is the 1-shard degenerate case — every access is homed
+        # at its ingress switch and no cross-shard hop is ever charged.
+        self.num_shards = 1
+        self.shard_map = None
+        self.nb = num_compute_blades
+        self.tpb = threads_per_blade
+        self.epoch_us = epoch_us
+        self.splitting_enabled = splitting_enabled
+        # Fault plane (repro_torch.core.faults): an ordered schedule of
+        # FaultEvents, each fired right before its access index is
+        # issued (both engines honour exact indexes; the batched engine
+        # clamps chunks so none straddles a fault point).  Consumed
+        # destructively by the replay.
+        self._fault_schedule: list[flt.FaultEvent] = []
+        self.fault_reports: list[flt.FaultReport] = []
+        # Whether a killed blade's exposed dirty pages can be recovered
+        # from a durable backing store (blade-kill accounting only).
+        self.durable_writebacks = durable_writebacks
+        self.gam_sw_cores = gam_sw_cores
+        self.cache_bytes_per_blade = cache_bytes_per_blade
+        if system == "mind-pso+":
+            max_directory_entries = 10**9  # infinite switch capacity
+        self.mmu, self.allocator = make_mmu(
+            num_memory_blades=num_memory_blades,
+            num_compute_blades=num_compute_blades,
+            cache_bytes_per_blade=cache_bytes_per_blade,
+            max_directory_entries=max_directory_entries,
+            initial_region_log2=initial_region_log2,
+            max_region_log2=max_region_log2,
+            downgrade_keeps_copy=downgrade_keeps_copy,
+            directory_eviction=directory_eviction,
+            alloc_policy=alloc_policy,
+        )
+        if constants is not None:
+            self.mmu.network = NetworkModel(constants)
+        self.cp = ControlPlane(self.mmu, self.allocator, epoch_us=epoch_us)
+        # The per-system model: owns the system's private state (the
+        # in-network MMU path for mind*, the software-DSM directory and
+        # blade caches for gam, the per-blade swap caches for fastswap),
+        # the PSO flag and the batched-engine choice.
+        self.model = make_model(system, self)
+        self.cp.prepopulate_on_mmap = self.model.has_switch
+        # Telemetry plane.  Hooks are wired ONLY when an *enabled*
+        # Telemetry is passed: a disabled/absent one leaves every
+        # component's `telemetry` attribute None, keeping the hot paths
+        # on the identical pre-telemetry code (the zero-overhead
+        # contract enforced by `dataplane_bench.py --overhead-check`).
+        self.telemetry = (telemetry if telemetry is not None
+                          and telemetry.enabled else None)
+        if self.telemetry is not None:
+            self.telemetry.num_blades = num_compute_blades
+            self.model.wire_telemetry(self.telemetry)
+        # Lossy fabric (repro_torch.core.faults.FabricModel): armed by
+        # fabric_loss_prob > 0 in the NetworkConstants.  The retry draw
+        # is a pure function of (fabric_seed, access index), shared by
+        # both engines.  Scoped to the in-network systems — the no-
+        # switch baselines have no fabric control plane to retry
+        # through, and a silently-ignored knob would be a lying config.
+        kf = self.mmu.network.k
+        self.fabric = None
+        if kf.fabric_loss_prob > 0.0:
+            if not self.model.has_switch:
+                raise ValueError(
+                    f"fabric_loss_prob={kf.fabric_loss_prob} needs the "
+                    f"in-network MMU; {system!r} has no switch to run "
+                    "the retry protocol — use a mind* system")
+            self.fabric = flt.FabricModel(kf)
+        # Scalar-loop cursor: the global access index the oracle is
+        # replaying (the fabric draw and fault firing key off it).
+        self._cur_access = -1
+
+    @property
+    def epoch_driver_enabled(self) -> bool:
+        """Whether the emulated-time epoch machinery runs: Bounded
+        Splitting, and/or the shard rebalancer (which fires at the same
+        epoch boundaries even with splitting off)."""
+        return self.splitting_enabled or self.cp.rebalance_threshold is not None
+
+    # ------------------------------------------------------------------ #
+    def _map_arena(self, trace: Trace) -> list[tuple[int, int, int]]:
+        """Allocate vmas for the trace arena; returns sorted
+        (arena_start, arena_end, vaddr_base) segments."""
+        segs: list[tuple[int, int, int]] = []
+        pdid = 1
+        shared = trace.shared_bytes
+        if shared > 0:
+            vma = self.cp.sys_mmap(pdid, shared, Perm.RW, requesting_blade=0).vma
+            segs.append((0, shared, vma.base))
+        priv_total = trace.arena_bytes - shared
+        if priv_total > 0:
+            nthreads = self.nb * self.tpb
+            per = priv_total // nthreads if nthreads else priv_total
+            if per > 0:
+                for t in range(nthreads):
+                    blade = t // self.tpb
+                    vma = self.cp.sys_mmap(
+                        pdid, per, Perm.RW, requesting_blade=blade
+                    ).vma
+                    segs.append((shared + t * per, shared + (t + 1) * per, vma.base))
+        return sorted(segs)
+
+    def _to_vaddr_batch(self, segs, arena_offs: np.ndarray) -> np.ndarray:
+        """Vectorized arena-offset -> vaddr mapping (batched data plane)."""
+        starts = np.array([s for s, _, _ in segs], np.int64)
+        ends = np.array([e for _, e, _ in segs], np.int64)
+        bases = np.array([b for _, _, b in segs], np.int64)
+        offs = np.asarray(arena_offs, np.int64)
+        idx = np.searchsorted(starts, offs, side="right") - 1
+        idx = np.clip(idx, 0, len(segs) - 1)
+        # Clamp offsets beyond the covered prefix into the containing /
+        # last segment, mirroring the scalar `_to_vaddr` fallback.
+        rel = np.minimum(offs - starts[idx], ends[idx] - starts[idx] - 1)
+        rel = np.maximum(rel, 0)
+        return bases[idx] + rel
+
+    def _to_vaddr(self, segs, arena_off: int) -> int:
+        # Binary search over segments.
+        lo, hi = 0, len(segs) - 1
+        while lo <= hi:
+            mid = (lo + hi) // 2
+            s, e, base = segs[mid]
+            if arena_off < s:
+                hi = mid - 1
+            elif arena_off >= e:
+                lo = mid + 1
+            else:
+                return base + (arena_off - s)
+        # Offsets beyond the last slice (rounding): clamp into last seg.
+        s, e, base = segs[-1]
+        return base + min(arena_off - s, e - s - 1) if arena_off >= e else segs[0][2]
+
+    # ------------------------------------------------------------------ #
+    # Fault plane: schedule faults against exact access indexes.
+    # ------------------------------------------------------------------ #
+    def schedule_fault_plan(self, events) -> None:
+        """Append fault events to the replay schedule.  Validation is
+        loud (``ValueError`` naming the offending entry): unknown kinds
+        and targets, overlapping indexes and impossible kill/restore
+        sequences are rejected here; index-vs-trace-length bounds are
+        checked at ``run()`` once the trace is known."""
+        merged = sorted(self._fault_schedule + list(events),
+                        key=lambda e: e.index)
+        flt.validate_fault_plan(self, merged)
+        self._fault_schedule = merged
+
+    def schedule_blade_kill(self, index: int, blade: int) -> None:
+        """Kill memory blade ``blade`` right before access ``index``:
+        quarantine it, re-home its vmas to surviving blades and account
+        dirty-page loss vs clean refetch (repro_torch.core.faults)."""
+        self.schedule_fault_plan([flt.FaultEvent(index, flt.BLADE_KILL,
+                                                 blade)])
+
+    def schedule_blade_restore(self, index: int, blade: int) -> None:
+        """Revive a killed memory blade right before access ``index``."""
+        self.schedule_fault_plan([flt.FaultEvent(index, flt.BLADE_RESTORE,
+                                                 blade)])
+
+    def _fire_fault(self, ev, written_pages=None):
+        """Dispatch one scheduled fault (shared by both engines at the
+        exact access index) and record its report."""
+        if ev.kind == flt.SWITCH_KILL:
+            restored = self.kill_and_restore_switch(ev.target)
+            rep = flt.FaultReport(kind=flt.SWITCH_KILL, index=ev.index,
+                                  target=ev.target,
+                                  entries_restored=restored)
+        elif ev.kind == flt.BLADE_KILL:
+            rep = flt.kill_memory_blade(self, ev.index, ev.target,
+                                        written_pages or set())
+        else:
+            rep = flt.restore_memory_blade(self, ev.index, ev.target)
+        self.fault_reports.append(rep)
+        return rep
+
+    # ------------------------------------------------------------------ #
+    def run(self, trace: Trace, max_accesses: int | None = None) -> EmulationResult:
+        if self._fault_schedule:
+            n = (len(trace) if max_accesses is None
+                 else min(len(trace), max_accesses))
+            flt.validate_fault_plan(self, self._fault_schedule, n)
+        if self.engine == "batched":
+            return self.model.make_batched_engine(**self.engine_options).run(
+                trace, max_accesses
+            )
+        return self._run_scalar(trace, max_accesses)
+
+    def _run_scalar(self, trace: Trace, max_accesses: int | None = None) -> EmulationResult:
+        segs = self._map_arena(trace)
+        nthreads = self.nb * self.tpb
+        clocks = np.zeros(nthreads)
+        breakdown = {"fetch": 0.0, "invalidation": 0.0, "tlb": 0.0, "queue": 0.0,
+                     "switch": 0.0, "local": 0.0, "software": 0.0,
+                     "retry": 0.0}
+        trans_lat: dict[str, list[float]] = {}
+        dir_timeline: list[int] = []
+        n = len(trace) if max_accesses is None else min(len(trace), max_accesses)
+        next_epoch_at = self.epoch_us
+        rec = self.telemetry.recorder if self.telemetry is not None else None
+        sched = self._fault_schedule
+        # Blade-kill accounting needs the written-page prefix at the
+        # fire index; track it only when the schedule can consume it.
+        track_writes = any(ev.kind == flt.BLADE_KILL for ev in sched)
+        written: set[int] = set()
+
+        for i in range(n):
+            if rec is not None:
+                rec.cur_index = i
+            while sched and sched[0].index == i:
+                self._fire_fault(sched.pop(0), written_pages=written)
+            t = int(trace.threads[i]) % nthreads
+            blade = t // self.tpb
+            vaddr = self._to_vaddr(segs, int(trace.offsets[i]))
+            is_write = bool(trace.ops[i])
+            self._cur_access = i
+            us = self.model.scalar_access(blade, vaddr, is_write, breakdown,
+                                          trans_lat)
+            clocks[t] += us
+            if track_writes and is_write:
+                written.add(vaddr & ~(PAGE_SIZE - 1))
+
+            # Epoch boundary: driven by emulated time (mean thread clock).
+            if self.epoch_driver_enabled and clocks.mean() >= next_epoch_at:
+                self.model.on_epoch(next_epoch_at, clocks, breakdown,
+                                    dir_timeline)
+                next_epoch_at += self.epoch_us
+
+        stats = self.model.stats
+        runtime = float(clocks.max()) if n else 0.0
+        return EmulationResult(
+            system=self.system,
+            workload=trace.name,
+            num_blades=self.nb,
+            threads_per_blade=self.tpb,
+            runtime_us=runtime,
+            performance=(n / runtime) if runtime > 0 else 0.0,
+            stats=stats,
+            directory_timeline=dir_timeline,
+            epoch_reports=list(self.cp.epoch_reports),
+            latency_breakdown_us=breakdown,
+            transition_latencies=trans_lat,
+            total_thread_us=float(clocks.sum()),
+            engine="scalar",
+            rebalance_reports=list(self.cp.rebalance_reports),
+            telemetry=self.telemetry,
+            fault_reports=list(self.fault_reports),
+        )
+
+    # ------------------------------------------------------------------ #
+    def _route(self, blade: int, vaddr: int, req: MemAccess):
+        """Route one packet to its switch.  The single-switch rack has
+        exactly one pipeline; :class:`ShardedRack` overrides this with
+        home-switch routing plus the cross-shard hop."""
+        return self.mmu.handle(req)
+
+
+class ShardedRack(DisaggregatedRack):
+    """Multi-switch rack: the region directory sharded across N switch
+    instances by a VA-range :class:`~repro_torch.core.switch.ShardMap`.
+
+    Each access is processed at the *home switch* of its VA shard
+    (block-cyclic over max-region-sized blocks, so a Bounded-Splitting
+    region never straddles shards); compute blades enter the rack
+    round-robin (`blade % num_shards`), and an access whose home shard
+    differs from its ingress switch pays one extra switch-to-switch hop
+    (``NetworkConstants.switch_to_switch_us``) on every path that
+    reaches the switch — pure local hits never leave the blade and
+    protection faults are decided at the ingress pipeline, so neither
+    pays it.
+
+    **The sharding-invariance contract** (pinned by
+    ``tests/test_sharded.py``): the control plane stays centralized —
+    it owns every shard's SRAM free list, installs/evicts entries and
+    drives Bounded-Splitting epochs globally, exactly as MIND's §3.2
+    control plane owns the data-plane state of the switch — so
+    *coherence decisions are shard-count-invariant*.  A 1/2/4-shard
+    replay produces byte-identical coherence statistics to the
+    single-switch oracle; with ``switch_to_switch_us == 0`` the
+    runtimes and latency breakdowns are identical too, and with a
+    nonzero hop they differ from the oracle by exactly
+    ``cross_shard_accesses * switch_to_switch_us`` of thread time on
+    epoch-free TSO replays (the hop relocates time but never changes a
+    transition).  What sharding *adds* is capacity: each switch ASIC
+    carries only its shard's directory slice (``shard_occupancy``),
+    per-shard failover snapshots (`ControlPlane.snapshot(shard=k)`),
+    and — on ``engine="batched"`` — a per-shard TCAM/MSI kernel
+    invocation whose conflict lanes only serialize that shard's
+    regions.
+    """
+
+    def __init__(self, num_shards: int = 2, shard_map: ShardMap | None = None,
+                 shard_slot_budgets=None, rebalance_threshold: float | None = None,
+                 rebalance_max_moves: int = 4, **rack_kw):
+        super().__init__(**rack_kw)
+        if not self.model.has_switch:
+            raise ValueError(
+                f"sharded directories need an in-network MMU; {self.system!r} "
+                "has no switch to shard — use DisaggregatedRack")
+        d = self.mmu.engine.directory
+        self.shard_map = shard_map or ShardMap(
+            num_shards=num_shards, home_log2=d.max_region_log2)
+        self.num_shards = self.shard_map.num_shards
+        assert self.shard_map.home_log2 >= d.max_region_log2, (
+            "shard blocks must be at least max-region-sized so no region "
+            "straddles a shard boundary")
+        self.cp.shard_map = self.shard_map
+        if self.telemetry is not None:
+            self.telemetry.shard_map = self.shard_map
+        # Decentralized mode: per-shard SRAM slot budgets (per-ASIC
+        # limits) replace the global capacity check, and eviction goes
+        # shard-local.  An int budget applies to every shard.
+        if shard_slot_budgets is not None:
+            if isinstance(shard_slot_budgets, int):
+                budgets = [shard_slot_budgets] * self.num_shards
+            else:
+                budgets = list(shard_slot_budgets)
+                assert len(budgets) == self.num_shards
+            d.enable_shard_budgets(self.shard_map.home_of_key, budgets)
+        if rebalance_threshold is not None:
+            self.cp.enable_rebalancer(rebalance_threshold, rebalance_max_moves)
+        # One InNetworkMMU per shard.  The switches share the global
+        # address space, the protection table (replicated rules in a
+        # real rack), the network model (queueing happens at the target
+        # *blades*) and the coherence engine whose directory the control
+        # plane owns globally — switch 0 is the primary `self.mmu`.
+        self.switches = [self.mmu] + [
+            InNetworkMMU(self.mmu.gas, self.mmu.protection,
+                         self.mmu.engine, self.mmu.network)
+            for _ in range(self.num_shards - 1)
+        ]
+        self._shard_counts = np.zeros(self.num_shards, np.int64)
+        self._cross_count = 0
+
+    # ------------------------------------------------------------------ #
+    def shard_occupancy(self) -> list[int]:
+        """Directory entries currently homed at each switch shard (the
+        per-ASIC SRAM occupancy a real deployment would provision by)."""
+        counts = [0] * self.num_shards
+        for key in self.mmu.engine.directory.entries:
+            counts[self.shard_map.home_of_key(key)] += 1
+        return counts
+
+    # ------------------------------------------------------------------ #
+    def run(self, trace: Trace, max_accesses: int | None = None) -> EmulationResult:
+        self._shard_counts = np.zeros(self.num_shards, np.int64)
+        self._cross_count = 0
+        res = super().run(trace, max_accesses)
+        if res.engine == "scalar":  # batched fills these itself
+            res.num_shards = self.num_shards
+            res.shard_accesses = self._shard_counts.tolist()
+            res.cross_shard_accesses = int(self._cross_count)
+        return res
+
+    # ------------------------------------------------------------------ #
+    # Fault injection (§3.2 failover): kill a switch mid-trace, rebuild
+    # it from its per-shard control-plane snapshot.
+    # ------------------------------------------------------------------ #
+    def schedule_switch_kill(self, index: int, shard: int) -> None:
+        """Kill switch ``shard`` right before trace access ``index`` is
+        issued, restoring it from ``ControlPlane.snapshot(shard=...)``.
+        Both engines honour the exact index (the batched engine clamps
+        its chunks so none straddles the kill point).  Repeated kills
+        (and mixed blade faults) compose through the ordered fault
+        schedule; invalid entries raise ``ValueError``."""
+        self.schedule_fault_plan([flt.FaultEvent(index, flt.SWITCH_KILL,
+                                                 shard)])
+
+    def kill_and_restore_switch(self, shard: int) -> int:
+        """The failure scenario itself: take the backup snapshot, lose
+        the ASIC's directory slice, rebuild from the snapshot.  Under
+        per-shard budgets the shard-local recency order — the only
+        recency state eviction depends on — survives the round trip, so
+        the replay converges to the uninterrupted run.  Returns the
+        number of entries restored."""
+        cp = self.cp
+        snap = cp.snapshot(shard=shard)
+        eng = self.mmu.engine
+        d = eng.directory
+        hold, d.telemetry = d.telemetry, None
+        try:
+            for key in [k for k in d.lru_keys()
+                        if self.shard_map.home_of_key(k) == shard]:
+                d.remove(d.entries[key])
+                eng._prepopulated.discard(key)
+            if d.shard_budgets is not None:
+                d._rebuild_shard_lists()
+        finally:
+            d.telemetry = hold
+        return cp.restore_shard(snap)
+
+    def _route(self, blade: int, vaddr: int, req: MemAccess):
+        home = self.shard_map.home_of(vaddr)
+        self._shard_counts[home] += 1
+        acc = self.cp.block_accesses
+        if acc is not None:
+            blk = vaddr >> self.shard_map.home_log2
+            acc[blk] = acc.get(blk, 0) + 1
+        res = self.switches[home].handle(req)
+        if res.acts.fault is None:
+            pure_local = res.acts.hit_local and not res.acts.needed_invalidation
+            if not pure_local and home != self.shard_map.ingress_of(blade):
+                hop = self.mmu.network.cross_shard_us()
+                res.latency.switch_us += hop
+                self._cross_count += 1
+                tel = self.mmu.engine.telemetry
+                if tel is not None:
+                    tel.event(tev.XS_HOP, blade=blade,
+                              base=res.acts.region_base,
+                              log2=res.acts.region_size_log2, targets=home)
+                    tel.observe_cross_shard(hop)
+        return res
+
+
+def run_workload(
+    system: str,
+    workload: str,
+    num_compute_blades: int,
+    threads_per_blade: int = 10,
+    accesses_per_thread: int = 5_000,
+    **rack_kw,
+) -> EmulationResult:
+    """Convenience one-shot used by benchmarks and tests."""
+    from repro_torch.core import traces as T
+
+    gen = T.WORKLOADS[workload]
+    trace = gen(
+        num_threads=num_compute_blades * threads_per_blade,
+        accesses_per_thread=accesses_per_thread,
+    )
+    rack = DisaggregatedRack(
+        system=system,
+        num_compute_blades=num_compute_blades,
+        threads_per_blade=threads_per_blade,
+        **rack_kw,
+    )
+    return rack.run(trace)
