@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.traces import Trace
 
 
@@ -49,3 +50,25 @@ def lane_inputs_to_device(nwaves, dkc, slot, blade, write, valid, ptype, w0,
             to_device(np.asarray(valid, bool), torch.bool, device),
             *(to_device(a, i32, device)
               for a in (ptype, w0, rw, bit, dirrows, cmask, planes)))
+
+
+def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """The port's ``LM`` parameters from the JAX package's ``LM.init``
+    pytree, given as nested dicts of NumPy arrays with the layers stacked on
+    axis 0 (dense family).  Every array goes through float32 (exact for
+    bfloat16 and float16 values) to ``cfg.param_dtype`` on ``device``; the
+    stacked ``layers`` become a list of per-layer dicts."""
+    from repro_torch.models.layers import _dtype
+
+    dt = _dtype(cfg.param_dtype)
+
+    def conv(node, layer=None):
+        if isinstance(node, dict):
+            return {k: conv(v, layer) for k, v in node.items()}
+        a = np.asarray(node)
+        return to_device((a if layer is None else a[layer]).astype(np.float32),
+                         dt, device)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [conv(tree["layers"], i) for i in range(cfg.num_layers)]
+    return out

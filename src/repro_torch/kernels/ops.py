@@ -14,15 +14,17 @@ the CPU is not a launch), so a run can show that its main path went
 through the kernels.
 
 The kernels are built from ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` at
-first use — one ``nvcc`` for all sources — into
-``build/repro_torch_kernels/`` at the repository root, and loaded with
-``ctypes``.  Nothing is built or loaded at import time.
+first use — one ``nvcc`` per source, all started together, then one link —
+into one shared library under ``build/repro_torch_kernels/`` at the
+repository root, and loaded with ``ctypes``.  Nothing is built or loaded at
+import time.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -32,6 +34,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.lane_replay import lane_replay_plain
+from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.range_match import (
     NO_MATCH,
     protect_check_plain,
@@ -45,7 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LPM_ROWS = 1 << 20  # translate keys are log2 * 2^20 + row
 
-LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0}
+LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
+            "paged_attention": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -72,10 +76,11 @@ def _nvcc() -> str:
 
 
 def build_library() -> Path:
-    """Compile every ``csrc/*.cu`` with one ``nvcc`` into one shared
-    library (cached by the sources' content) and return its path.  The
-    compiler's output, ptxas report included, is kept beside it in
-    ``build.log``."""
+    """Compile every ``csrc/*.cu`` into one shared library (cached by the
+    sources' content) and return its path.  Each source gets its own
+    ``nvcc``, all running at once; the compiler's output, ptxas report
+    included, is kept beside the library in ``<source>.log``, the link's in
+    ``link.log``."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
@@ -85,14 +90,35 @@ def build_library() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o" for s in sources]
+    jobs = []
+    try:
+        for s, o in zip(sources, objs):
+            log = open(BUILD_DIR / f"{s.stem}.log", "w")
+            jobs.append((s, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                stdout=log, stderr=subprocess.STDOUT)))
+        failed = [s.name for s, _, proc in jobs if proc.wait()]
+    finally:
+        for _, log, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}; see the .log files in "
+                           f"{BUILD_DIR}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    with open(BUILD_DIR / "build.log", "w") as log:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared",
-                              *map(str, sources), "-o", str(tmp)],
-                             stdout=log, stderr=subprocess.STDOUT)
+    with open(BUILD_DIR / "link.log", "w") as log:
+        res = subprocess.run([nvcc, "-shared", *map(str, objs), "-o",
+                              str(tmp)], stdout=log,
+                             stderr=subprocess.STDOUT)
+    for o in objs:
+        o.unlink(missing_ok=True)
     if res.returncode:
-        raise RuntimeError(f"nvcc failed ({res.returncode}); see "
-                           f"{BUILD_DIR / 'build.log'}")
+        raise RuntimeError(f"linking the kernels failed ({res.returncode}); "
+                           f"see {BUILD_DIR / 'link.log'}")
     os.replace(tmp, out)
     return out
 
@@ -102,7 +128,11 @@ def _declare(lib) -> None:
     lib.rm_translate.argtypes = [p, i, p, i, p, p, p]
     lib.rm_protect.argtypes = [p, p, p, i, p, i, p, p]
     lib.lane_replay_launch.argtypes = [i] * 9 + [p] * 15  # 14 tensors + stream
-    for f in (lib.rm_translate, lib.rm_protect, lib.lane_replay_launch):
+    # dtype, 6 tensors, B P page Hkv G D maxp, scale, stream
+    lib.paged_attention_launch.argtypes = ([i] + [p] * 6 + [i] * 7
+                                           + [ctypes.c_float, p])
+    for f in (lib.rm_translate, lib.rm_protect, lib.lane_replay_launch,
+              lib.paged_attention_launch):
         f.restype = i
 
 
@@ -274,7 +304,96 @@ def lane_replay(nwaves, dkc, slot, blade, write, valid, ptype, w0, rw, bit,
     return dir_o, planes_o, w1, w2, w3
 
 
+# --------------------------------------------------------------------- #
+# Decode attention over the paged KV pool.
+# --------------------------------------------------------------------- #
+_PA_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PA_KEYS = 32  # keys per chunk in csrc/paged_attention.cu (kKeys)
+_PA_MAX_D = 256
+_MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+
+
+def _paged_attention_smem(g: int, d: int) -> int:
+    """Shared memory (bytes) of one block of the paged-attention kernel:
+    q and acc ``[G, D]``, a K and a V chunk ``[32, D]``, the probabilities
+    ``[G, 32]`` and three ``[G]`` vectors, all fp32."""
+    return 4 * (2 * g * d + 2 * _PA_KEYS * d + g * _PA_KEYS + 3 * g)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_tables: torch.Tensor,
+                    seq_lens: torch.Tensor, *, scale: float | None = None):
+    """GQA decode attention over the paged pool (the counterpart of the
+    JAX package's ``paged_attention``).
+
+    ``q`` is ``[B, Hq, D]`` (``Hq = Hkv * G``) or ``[B, Hkv, G, D]``;
+    ``k_pages`` / ``v_pages`` ``[P, page, Hkv, D]`` in q's dtype (float32,
+    bfloat16 or float16, ``D <= 256``); ``block_tables`` int32 ``[B,
+    maxp]`` (padding entries 0); ``seq_lens`` int32 ``[B]``.  Returns the
+    output in q's layout and dtype.  The scale is ``1/sqrt(D)`` unless
+    given."""
+    dev = q.device
+    if not isinstance(q, torch.Tensor) or q.dtype not in _PA_DTYPES:
+        raise TypeError(f"q must be a float32/bfloat16/float16 tensor, got "
+                        f"{getattr(q, 'dtype', type(q))}")
+    if q.dim() not in (3, 4):
+        raise ValueError(f"q must be [B, Hq, D] or [B, Hkv, G, D], got "
+                         f"{tuple(q.shape)}")
+    _expect(q, "q", q.dtype, q.dim(), dev)
+    _expect(k_pages, "k_pages", q.dtype, 4, dev)
+    _expect(v_pages, "v_pages", q.dtype, 4, dev)
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"v_pages {tuple(v_pages.shape)} != k_pages "
+                         f"{tuple(k_pages.shape)}")
+    p, page, hkv, d = k_pages.shape
+    if q.dim() == 3:
+        b, hq, dq = q.shape
+        if hkv == 0 or hq % hkv:
+            raise ValueError(f"{hq} query heads do not group over {hkv} "
+                             f"KV heads")
+        g = hq // hkv
+    else:
+        b, hkv_q, g, dq = q.shape
+        if hkv_q != hkv:
+            raise ValueError(f"q has {hkv_q} KV heads, the pool {hkv}")
+    if dq != d or not 0 < d <= _PA_MAX_D or p == 0 or page == 0:
+        raise ValueError(f"paged_attention shapes: q {tuple(q.shape)}, pool "
+                         f"{tuple(k_pages.shape)} (need D <= {_PA_MAX_D} "
+                         f"equal in both, P > 0, page > 0)")
+    _expect(block_tables, "block_tables", torch.int32, 2, dev)
+    _expect(seq_lens, "seq_lens", torch.int32, 1, dev)
+    if block_tables.shape[0] != b or seq_lens.shape[0] != b:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} and "
+                         f"seq_lens {tuple(seq_lens.shape)} must have B={b} "
+                         f"rows")
+    maxp = block_tables.shape[1]
+    for n, name in ((p * page, "P*page"), (maxp, "maxp")):
+        _int32_range(n, name)
+    if b > 65535:
+        raise ValueError(f"B={b} exceeds the kernel's grid (65535)")
+    eff_scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    if dev.type != "cuda":
+        return paged_attention_plain(q, k_pages, v_pages, block_tables,
+                                     seq_lens, eff_scale)
+    smem = _paged_attention_smem(g, d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"G={g}, D={d} needs {smem} bytes of shared memory "
+                         f"per block; the card has {_MAX_SMEM}")
+    lib = load_library()
+    out = torch.empty_like(q)
+    if b and g:
+        with torch.cuda.device(dev):
+            _check(lib.paged_attention_launch(
+                _PA_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), block_tables.data_ptr(),
+                seq_lens.data_ptr(), out.data_ptr(), b, p, page, hkv, g, d,
+                maxp, eff_scale, _stream(dev)), "paged_attention")
+        LAUNCHES["paged_attention"] += 1
+    return out
+
+
 __all__ = [
     "LAUNCHES", "NO_MATCH", "build_library", "lane_replay", "load_library",
-    "protect_check", "reset_launches", "translate_lookup",
+    "paged_attention", "protect_check", "reset_launches",
+    "translate_lookup",
 ]

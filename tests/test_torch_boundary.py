@@ -2,8 +2,8 @@
 
 Every ``repro_torch`` module imports with ``jax`` and ``repro`` blocked; no
 source file of the package (nor ``chip_smoke.py``) names either in an
-import; and the batched engine refuses to run without a CUDA device unless
-the caller asks for the CPU.
+import; and the batched engine, the LM and the paged server refuse to run
+without a CUDA device unless the caller asks for the CPU.
 """
 
 import ast
@@ -75,6 +75,26 @@ def test_batched_engine_refuses_without_cuda(monkeypatch):
                             accesses_per_thread=10)
     with pytest.raises(RuntimeError, match="engine_options=.*'device': 'cpu'"):
         rack.run(trace)
+
+
+def test_lm_and_server_refuse_without_cuda(monkeypatch):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import PagedServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(reduced_config(get_config("qwen3-4b")),
+                              num_layers=1)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LM(cfg, device=device)
+    model = LM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedServer(model, params, num_pages=8)
+    PagedServer(model, params, num_pages=8, device="cpu")
 
 
 def test_unported_systems_raise():

@@ -29,6 +29,12 @@ COPIES = [
     "telemetry/__init__.py", "telemetry/events.py", "telemetry/invariants.py",
     "telemetry/metrics.py", "telemetry/recorder.py",
     "dataplane/scheduler.py", "dataplane/tables.py",
+    # get_config's importlib string becomes repro_torch.configs.<arch>.
+    "configs/__init__.py", "configs/base.py", "configs/deepseek_coder_33b.py",
+    "configs/gemma_2b.py", "configs/granite_34b.py",
+    "configs/grok_1_314b.py", "configs/llama_3_2_vision_11b.py",
+    "configs/moonshot_v1_16b_a3b.py", "configs/musicgen_large.py",
+    "configs/qwen3_4b.py", "configs/xlstm_1_3b.py", "configs/zamba2_1_2b.py",
 ]
 
 # The reference's change-log tags, which the copies leave out.
@@ -42,6 +48,16 @@ TRIMMED = {
     # baselines.py is not ported yet.
     "dataplane/__init__.py": (("BatchedDataPlane", "build_wave_schedule"),
                               ("baselines", "GamBatchedReplay")),
+    # The dense block only; MoE, xLSTM, Mamba2 and cross-attention blocks
+    # come with their families.
+    "models/blocks.py": (("dense_block_params", "dense_block_prefill",
+                          "dense_block_decode", "dense_cache_spec"),
+                         ("moe", "linear_recurrence")),
+    # LM for the dense family only: the other families raise.
+    "models/model.py": (("class LM", "def init", "def _cast", "def _embed",
+                         "def _head_matrix", "def prefill",
+                         "def decode_step", "def init_cache"),
+                        ("moe", "linear_recurrence")),
 }
 
 
@@ -71,7 +87,12 @@ def test_trimmed_module_keeps_its_names(rel):
 def test_every_port_module_is_copied_trimmed_or_ported():
     ported = {"__init__.py", "convert.py", "dataplane/engine.py",
               "kernels/__init__.py", "kernels/ops.py",
-              "kernels/range_match.py", "kernels/lane_replay.py"}
+              "kernels/range_match.py", "kernels/lane_replay.py",
+              "kernels/paged_attention.py", "models/__init__.py",
+              "models/layers.py", "models/chunked_attention.py",
+              "memory/__init__.py", "memory/paged_pool.py",
+              "serving/__init__.py", "serving/engine.py",
+              "launch/__init__.py", "launch/serve.py"}
     have = {str(p.relative_to(ROOT / "repro_torch"))
             for p in (ROOT / "repro_torch").rglob("*.py")}
     assert have == set(COPIES) | set(TRIMMED) | ported

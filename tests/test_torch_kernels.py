@@ -282,7 +282,7 @@ def test_wrappers_count_no_launch_on_cpu():
     P.reset_launches()
     _check_translate(np.array([1 << 40], np.int64), _toy_translate_table())
     assert P.LAUNCHES == {"protect_check": 0, "translate_lookup": 0,
-                          "lane_replay": 0}
+                          "lane_replay": 0, "paged_attention": 0}
 
 
 def test_wrappers_validate_inputs():
