@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of MIND on one GPU: the coherence replay and
-the MIND-paged serving path.
+"""Drive the PyTorch/CUDA port of MIND on one GPU: the coherence replay,
+the MIND-paged serving path and the kernel microbench.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -31,6 +31,25 @@ exits nonzero):
               the same K/V gathered to dense; extra cases: an empty
               sequence, ragged last pages, unused block-table entries,
               the gemma-2b shape and G = 1 at D = 256.
+   kernel_bench — the kernels the JAX package reaches only through its
+              kernel API (repro.kernels.ops, driven by
+              benchmarks/kernel_bench.py), through the port's
+              repro_torch.kernels.ops: first that bench's own cells at its
+              shapes (translate 1024 x 8, msi_transition 512 requests on
+              4,096 slots, msi_transition_vectorized 256 distinct slots,
+              paged attention B 8, flash attention 1 x 4 x 256 x 64 fp32),
+              each kernel against its plain version, both timed; then
+              msi_transition at MIND's directory width (30,000 slots, all
+              I, 1.6M zipf(1.1) requests from 8 blades, 50% writes), held
+              bytewise to its plain version on the whole stream when that
+              finishes within 60 s, else on its first 262,144 requests,
+              and msi_transition_vectorized against it on 8,192 distinct
+              slots; and flash_attention at S 4,096 with the heads of
+              qwen3-4b (32/8, D 128) and gemma-2b (8/1, D 256), causal
+              bf16 (2e-2), qwen3-4b non-causal bf16 and causal fp32
+              (1e-4), timed beside its plain version and
+              scaled_dot_product_attention.  The two kernels' launch counts
+              are this phase's.
 5. paged_vs_dense — qwen3-4b at full width in fp32: one paged decode step
               through the kernel against the dense-cache decode_step on
               the same prompt, at 2e-3.
@@ -96,7 +115,29 @@ KERNELS = {
     "paged_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:39"),
+    "msi_transition": dict(
+        source="src/repro_torch/kernels/csrc/directory_msi.cu",
+        replaces="src/repro/kernels/directory_msi.py:82"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:25"),
 }
+# Kernels on no path of the system: the JAX package reaches them through
+# its kernel API alone, so their launches are those of phase kernel_bench.
+BENCH_KERNELS = ("msi_transition", "flash_attention")
+
+# MSI at MIND's directory width: the rack's 30,000 directory entries, all
+# I, driven by the main cell's 8 x 10 x 20,000 accesses (slots zipf(1.1) as
+# M_A's skew, slot ranks shuffled; requesters uniform over the 8 blades;
+# 50% writes as YCSB-A).  The plain version is held to the kernel on the
+# whole stream if it finishes in MSI_PLAIN_S seconds, else on a prefix.
+MSI = dict(slots=30000, requesters=8, requests=8 * 10 * 20000, zipf=1.1,
+           writes=0.5, prefix=262144, distinct=8192)
+MSI_PLAIN_S = 60.0
+# Flash attention at the prefill width of two dense configs: B 1, S 4,096.
+FLASH = {"qwen3-4b": dict(heads=32, kv_heads=8, head_dim=128),
+         "gemma-2b": dict(heads=8, kv_heads=1, head_dim=256)}
+FLASH_S = 4096
 
 
 def emit(obj) -> None:
@@ -650,6 +691,226 @@ def paged_kernel_row(device, recorded):
         bound=bound_ms(nbytes, nops, TENSOR_OPS_S))
 
 
+# --------------------------------------------------------------------- #
+# The kernel microbench: the kernels the JAX package reaches through its
+# kernel API alone.
+# --------------------------------------------------------------------- #
+def msi_directory(rng, s, nblades):
+    """A directory as benchmarks/kernel_bench.py draws it: random states,
+    an owner for each M slot, sharers 1 << owner (M) or 3 (S)."""
+    import numpy as np
+
+    state = rng.integers(0, 3, s)
+    owner = np.where(state == 2, rng.integers(0, nblades, s), -1)
+    sharers = np.where(state == 2, 1 << np.maximum(owner, 0),
+                       np.where(state == 1, 3, 0))
+    return state, sharers, owner
+
+
+def msi_stream(rng, n, s):
+    """``n`` requests of the MSI cell over ``s`` slots: zipf-ranked slots
+    with the ranks shuffled, uniform requesters, a share of writes."""
+    import numpy as np
+
+    p = 1.0 / np.arange(1, s + 1) ** MSI["zipf"]
+    slots = rng.permutation(s)[rng.choice(s, n, p=p / p.sum())]
+    return (slots, rng.integers(0, MSI["requesters"], n),
+            rng.random(n) < MSI["writes"])
+
+
+def msi_bound(s: int, b: int):
+    """Bytes and bound of ``b`` MSI requests on ``s`` slots: each request's
+    three words read and two written, the directory's three arrays read
+    once and written once; about 20 integer operations per request."""
+    nbytes = 4 * (5 * b + 6 * s)
+    return nbytes, bound_ms(nbytes, 20 * b)
+
+
+def flash_bound(b, h, hkv, s, d, causal, dtype):
+    """q, k, v read once and out written once; 4*S*S*D operations per
+    head (halved by the causal mask) at the tensor-core peak in bf16/fp16
+    and the non-tensor fp32 peak in fp32."""
+    import torch
+
+    el = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * h + 2 * hkv) * b * s * d * el
+    nops = 4 * b * h * s * s * d // (2 if causal else 1)
+    rate = ALU_OPS_S if dtype == torch.float32 else TENSOR_OPS_S
+    return nbytes, nops, bound_ms(nbytes, nops, rate)
+
+
+def phase_kernel_bench(device, scale: float = 1.0):
+    """Phase kernel_bench: benchmarks/kernel_bench.py's cells at its shapes
+    (each kernel against its plain version, both timed); then msi_transition
+    at MIND's directory width and flash_attention at the prefill width of
+    qwen3-4b and gemma-2b, against their plain versions and, for flash
+    attention, beside scaled_dot_product_attention."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.directory_msi import msi_transition_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    from repro_torch.kernels.range_match import translate_lookup_plain
+
+    def dev(*arrays, dtype=torch.int32):
+        return [torch.from_numpy(np.asarray(a)).to(device=device, dtype=dtype)
+                for a in arrays]
+
+    rng = np.random.default_rng(SEED)
+    cells = {}
+    # ---- benchmarks/kernel_bench.py's cells, at its shapes ---------------
+    tbl, = dev(np.array([((1 << 40) + (i << 36), 36, i, 0) for i in range(8)],
+                        np.int64), dtype=torch.int64)
+    v, = dev((1 << 40) + rng.integers(0, 8 << 36, 1024).astype(np.int64),
+             dtype=torch.int64)
+    cells["translate_1024x8"] = dict(
+        max_abs_err=exact("translate_lookup (bench)",
+                          ops.translate_lookup(v, tbl),
+                          translate_lookup_plain(v, tbl)),
+        ms=time_ms(lambda: ops.translate_lookup(v, tbl), 50, device),
+        plain_ms=time_ms(lambda: translate_lookup_plain(v, tbl), 10, device))
+
+    directory = dev(*msi_directory(rng, 4096, 8))
+    reqs = dev(rng.integers(0, 4096, 512), rng.integers(0, 8, 512),
+               rng.integers(0, 2, 512))
+    args = (*directory, *reqs)
+    cells["msi_seq_512x4096"] = dict(
+        max_abs_err=exact("msi_transition (bench)", ops.msi_transition(*args),
+                          msi_transition_plain(*args)),
+        ms=time_ms(lambda: ops.msi_transition(*args), 20, device),
+        plain_ms=time_ms(lambda: msi_transition_plain(*args), 3, device))
+    # The vectorized variant's contract: distinct slots.
+    args = (*directory, *dev(rng.permutation(4096)[:256]),
+            *(r[:256] for r in reqs[1:]))
+    cells["msi_vec_256x4096"] = dict(
+        max_abs_err=exact("msi_transition_vectorized (bench)",
+                          ops.msi_transition_vectorized(*args),
+                          ops.msi_transition(*args)),
+        plain_ms=time_ms(lambda: ops.msi_transition_vectorized(*args), 20,
+                         device),
+        kernel_seq_ms=time_ms(lambda: ops.msi_transition(*args), 20, device))
+
+    q, kp, vp = dev(rng.standard_normal((8, 8, 64)),
+                    rng.standard_normal((64, 16, 2, 64)),
+                    rng.standard_normal((64, 16, 2, 64)), dtype=torch.float32)
+    bt, sl = dev(rng.integers(0, 64, (8, 8)), np.full(8, 100))
+    cells["paged_attn_b8"] = dict(
+        max_abs_err=held("paged_attention (bench)",
+                         ops.paged_attention(q, kp, vp, bt, sl),
+                         paged_attention_plain(q, kp, vp, bt, sl), 1e-5),
+        tolerance=1e-5,
+        ms=time_ms(lambda: ops.paged_attention(q, kp, vp, bt, sl), 50, device),
+        plain_ms=time_ms(lambda: paged_attention_plain(q, kp, vp, bt, sl), 5,
+                         device))
+
+    qq, = dev(rng.standard_normal((1, 4, 256, 64)), dtype=torch.float32)
+    fkw = dict(causal=True, block_q=128, block_k=128)
+    cells["flash_attn_256"] = dict(
+        max_abs_err=held("flash_attention (bench)",
+                         ops.flash_attention(qq, qq, qq, **fkw),
+                         flash_attention_plain(qq, qq, qq, scale=0.125,
+                                               **fkw), 1e-4),
+        tolerance=1e-4,
+        ms=time_ms(lambda: ops.flash_attention(qq, qq, qq, **fkw), 50, device),
+        plain_ms=time_ms(lambda: flash_attention_plain(
+            qq, qq, qq, scale=0.125, **fkw), 5, device))
+
+    # ---- msi_transition at MIND's directory width ------------------------
+    s = MSI["slots"]
+    b = max(4096, int(MSI["requests"] * scale))
+    directory = dev(np.zeros(s), np.zeros(s), np.full(s, -1))
+    stream = dev(*msi_stream(rng, b, s))
+    args = (*directory, *stream)
+    got = ops.msi_transition(*args)
+    ms = time_ms(lambda: ops.msi_transition(*args), 3, device)
+    # The plain version on a prefix first; on the whole stream if that
+    # prefix says it finishes within MSI_PLAIN_S.
+    n = min(b, MSI["prefix"])
+    pre = (*directory, *(r[:n] for r in stream))
+    t = time.perf_counter()
+    want = msi_transition_plain(*pre)
+    plain_s = time.perf_counter() - t
+    held_on = n
+    if plain_s * b / n < MSI_PLAIN_S and n < b:
+        t = time.perf_counter()
+        want = msi_transition_plain(*args)
+        plain_s = time.perf_counter() - t
+        held_on = b
+    if held_on < b:
+        got = ops.msi_transition(*pre)
+    err = exact(f"msi_transition ({held_on} of {b} requests)", got, want)
+    final = got[:3] if held_on == b else ops.msi_transition(*args)[:3]
+    sync(device)
+    state_counts = torch.bincount(final[0].long(), minlength=3).tolist()
+    # The vectorized variant against the kernel on distinct slots of the
+    # directory the stream left.
+    m = MSI["distinct"]
+    vec = (*final, *dev(rng.permutation(s)[:m],
+                        rng.integers(0, MSI["requesters"], m),
+                        rng.random(m) < MSI["writes"]))
+    vec_err = exact("msi_transition_vectorized vs the kernel (distinct)",
+                    ops.msi_transition_vectorized(*vec),
+                    ops.msi_transition(*vec))
+    nbytes, bound = msi_bound(s, b)
+    msi = dict(
+        max_abs_err=max(err, vec_err), held_on_requests=held_on,
+        held_on_whole_stream=held_on == b,
+        shape=dict(S=s, B=b, requesters=MSI["requesters"], zipf=MSI["zipf"],
+                   writes=MSI["writes"]),
+        final_states_ISM=state_counts,
+        fetch_from_owner=int((got[3] >= 0).sum()),
+        ms=ms, plain_ms=plain_s * 1e3, plain_requests=held_on,
+        bytes=nbytes, bound=bound,
+        distinct=dict(B=m, max_abs_err=vec_err,
+                      kernel_ms=time_ms(lambda: ops.msi_transition(*vec), 10,
+                                        device),
+                      vectorized_ms=time_ms(
+                          lambda: ops.msi_transition_vectorized(*vec), 10,
+                          device)))
+
+    # ---- flash_attention at the prefill width of two configs -------------
+    fs = FLASH_S if scale >= 1 else 256
+    flash = {}
+    cases = [(arch, True, torch.bfloat16) for arch in FLASH]
+    cases += [("qwen3-4b", False, torch.bfloat16),
+              ("qwen3-4b", True, torch.float32)]
+    for arch, causal, dtype in cases:
+        c = FLASH[arch]
+        h, hkv, d = c["heads"], c["kv_heads"], c["head_dim"]
+        q, k, v = dev(rng.standard_normal((1, h, fs, d)) * 0.5,
+                      rng.standard_normal((1, hkv, fs, d)) * 0.5,
+                      rng.standard_normal((1, hkv, fs, d)), dtype=dtype)
+        fkw = dict(causal=causal, block_q=128, block_k=128)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        name = (f"{arch} {'causal' if causal else 'full'} "
+                f"{str(dtype).split('.')[1]}")
+        want = flash_attention_plain(q, k, v, scale=d ** -0.5, **fkw)
+        err = held(f"flash_attention ({name})",
+                   ops.flash_attention(q, k, v, **fkw), want, tol)
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                             enable_gqa=True)
+        lib_err = held(f"scaled_dot_product_attention ({name}, yardstick)",
+                       lib, want, tol)
+        del lib, want
+        nbytes, nops, bound = flash_bound(1, h, hkv, fs, d, causal, dtype)
+        flash[name] = dict(
+            max_abs_err=err, tolerance=tol,
+            shape=dict(B=1, H=h, Hkv=hkv, S=fs, D=d, causal=causal,
+                       dtype=str(dtype).split(".")[1]),
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, **fkw), 5,
+                       device),
+            plain_ms=time_ms(lambda: flash_attention_plain(
+                q, k, v, scale=d ** -0.5, **fkw), 2, device),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), 20, device),
+            library_err=lib_err, bytes=nbytes, flops=nops, bound=bound)
+        del q, k, v
+    return dict(bench=cells, msi_transition=msi, flash_attention=flash)
+
+
 def phase_paged_vs_dense(device, scale: float = 1.0):
     """Phase 5: qwen3-4b at full width in fp32 — one paged decode step
     through the kernel against the dense-cache ``decode_step`` on the same
@@ -835,13 +1096,30 @@ def main() -> int:
     del recorded
     emit({"phase": "kernels", **kern})
     torch.cuda.empty_cache()
+    ops.reset_launches()
+    t = time.perf_counter()
+    bench = phase_kernel_bench(device)
+    sync(device)
+    bench_launches = {k: ops.LAUNCHES[k] for k in BENCH_KERNELS}
+    if not all(bench_launches.values()):
+        raise AssertionError(f"kernel_bench launched no kernel of "
+                             f"{bench_launches}")
+    emit({"phase": "kernel_bench", "seconds": time.perf_counter() - t,
+          "launches": bench_launches, **bench})
+    kern["msi_transition"] = bench["msi_transition"]
+    top = "qwen3-4b causal bfloat16"
+    kern["flash_attention"] = dict(
+        bench["flash_attention"][top],
+        max_abs_err=max(c["max_abs_err"]
+                        for c in bench["flash_attention"].values()))
+    torch.cuda.empty_cache()
     emit({"phase": "paged_vs_dense", **phase_paged_vs_dense(device)})
     torch.cuda.empty_cache()
     emit({"phase": "parity", "cells": phase_parity(device)})
     main_run = phase_main(device)
     emit({"phase": "main", **main_run})
 
-    launches = {**main_run["launches"],
+    launches = {**main_run["launches"], **bench_launches,
                 "paged_attention": serve["launches"]["paged_attention"]}
     lines = []
     for kname, info in KERNELS.items():

@@ -2,7 +2,10 @@
 
 * range_match      — TCAM protection check + LPM translation (stages 1-2)
 * lane_replay      — the MSI directory + blade-cache wave loop (stage 3)
+* directory_msi    — packet-order MSI transitions through the
+                     materialized transition table
 * paged_attention  — decode attention over the paged KV pool (serving)
+* flash_attention  — blocked (FlashAttention-2) attention, forward only
 
 Each kernel's CUDA source lives in ``csrc/``; its plain PyTorch version
 sits in the module of the same name, and ops.py holds the wrappers that
@@ -11,11 +14,16 @@ launch the kernel on CUDA tensors and run the plain version on CPU ones.
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import (
+    build_transition_table,
+    flash_attention,
     lane_replay,
+    msi_transition,
+    msi_transition_vectorized,
     paged_attention,
     protect_check,
     translate_lookup,
 )
 
-__all__ = ["ops", "lane_replay", "paged_attention", "protect_check",
-           "translate_lookup"]
+__all__ = ["ops", "build_transition_table", "flash_attention",
+           "lane_replay", "msi_transition", "msi_transition_vectorized",
+           "paged_attention", "protect_check", "translate_lookup"]

@@ -33,6 +33,12 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.directory_msi import (
+    build_transition_table,
+    msi_transition_plain,
+    msi_transition_vectorized as _msi_vectorized,
+)
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.lane_replay import lane_replay_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.range_match import (
@@ -49,7 +55,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LPM_ROWS = 1 << 20  # translate keys are log2 * 2^20 + row
 
 LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
-            "paged_attention": 0}
+            "paged_attention": 0, "msi_transition": 0, "flash_attention": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -131,8 +137,14 @@ def _declare(lib) -> None:
     # dtype, 6 tensors, B P page Hkv G D maxp, scale, stream
     lib.paged_attention_launch.argtypes = ([i] + [p] * 6 + [i] * 7
                                            + [ctypes.c_float, p])
+    # 7 inputs (table last), S, B, 5 outputs, stream
+    lib.msi_transition_launch.argtypes = [p] * 7 + [i, i] + [p] * 6
+    # dtype, q k v out, B H Hkv S D, scale, causal, stream
+    lib.flash_attention_launch.argtypes = ([i] + [p] * 4 + [i] * 5
+                                           + [ctypes.c_float, i, p])
     for f in (lib.rm_translate, lib.rm_protect, lib.lane_replay_launch,
-              lib.paged_attention_launch):
+              lib.paged_attention_launch, lib.msi_transition_launch,
+              lib.flash_attention_launch):
         f.restype = i
 
 
@@ -392,8 +404,130 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+# --------------------------------------------------------------------- #
+# The in-network MSI directory.
+# --------------------------------------------------------------------- #
+_MSI_ARGS = ("state", "sharers", "owner", "slots", "requesters", "is_write")
+_msi_tables: dict = {}
+
+
+def _msi_check(args):
+    dev = args[0].device
+    for name, t in zip(_MSI_ARGS, args):
+        _expect(t, name, torch.int32, 1, dev)
+    s, b = args[0].shape[0], args[3].shape[0]
+    if s == 0 or any(t.shape[0] != s for t in args[1:3]) or any(
+            t.shape[0] != b for t in args[4:]):
+        raise ValueError(f"MSI shapes: state/sharers/owner "
+                         f"{[tuple(t.shape) for t in args[:3]]} must share "
+                         f"S > 0, slots/requesters/is_write "
+                         f"{[tuple(t.shape) for t in args[3:]]} must share B")
+    _int32_range(s, "S")
+    _int32_range(b, "B")
+    return dev, s, b
+
+
+def msi_transition(state: torch.Tensor, sharers: torch.Tensor,
+                   owner: torch.Tensor, slots: torch.Tensor,
+                   requesters: torch.Tensor, is_write: torch.Tensor):
+    """Sequential (packet-order) MSI transitions over one request batch
+    (the counterpart of the JAX package's ``msi_transition``).
+
+    All int32: the directory ``state``, ``sharers``, ``owner`` ``[S]``;
+    the requests ``slots``, ``requesters``, ``is_write`` ``[B]``.  Returns
+    new ``(state, sharers, owner, fetch_src, inval_mask)``; the inputs are
+    left as they are."""
+    args = (state, sharers, owner, slots, requesters, is_write)
+    dev, s, b = _msi_check(args)
+    if dev.type != "cuda":
+        return msi_transition_plain(*args)
+    if b == 0:
+        return (state.clone(), sharers.clone(), owner.clone(),
+                torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev))
+    lib = load_library()
+    if dev not in _msi_tables:
+        _msi_tables[dev] = torch.from_numpy(build_transition_table()).to(dev)
+    outs = [torch.empty(s, dtype=torch.int32, device=dev) for _ in range(3)]
+    outs += [torch.empty(b, dtype=torch.int32, device=dev) for _ in range(2)]
+    with torch.cuda.device(dev):
+        _check(lib.msi_transition_launch(
+            *(t.data_ptr() for t in args), _msi_tables[dev].data_ptr(), s, b,
+            *(t.data_ptr() for t in outs), _stream(dev)), "msi_transition")
+    LAUNCHES["msi_transition"] += 1
+    return tuple(outs)
+
+
+def msi_transition_vectorized(state: torch.Tensor, sharers: torch.Tensor,
+                              owner: torch.Tensor, slots: torch.Tensor,
+                              requesters: torch.Tensor,
+                              is_write: torch.Tensor):
+    """Conflict-free MSI batch (all ``slots`` distinct), no packet
+    serialisation: plain tensor code on any device, as in the JAX package.
+    Arguments and results as :func:`msi_transition`."""
+    args = (state, sharers, owner, slots, requesters, is_write)
+    _msi_check(args)
+    return _msi_vectorized(*args)
+
+
+# --------------------------------------------------------------------- #
+# Blocked (flash) attention.
+# --------------------------------------------------------------------- #
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    block_q: int = 128, block_k: int = 128):
+    """Blocked attention over ``q [B, H, S, D]`` and ``k``, ``v`` ``[B,
+    Hkv, S, D]`` in q's dtype (float32, bfloat16 or float16, ``D <= 256``;
+    H a multiple of Hkv, query head h reading KV head ``h // (H/Hkv)``).
+    Returns ``[B, H, S, D]`` in q's dtype.  S must divide by
+    ``min(block_q, S)`` and ``min(block_k, S)``, the reference's blocks;
+    the scale is ``1/sqrt(D)`` unless given."""
+    dev = q.device
+    if not isinstance(q, torch.Tensor) or q.dtype not in _PA_DTYPES:
+        raise TypeError(f"q must be a float32/bfloat16/float16 tensor, got "
+                        f"{getattr(q, 'dtype', type(q))}")
+    _expect(q, "q", q.dtype, 4, dev)
+    _expect(k, "k", q.dtype, 4, dev)
+    _expect(v, "v", q.dtype, 4, dev)
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    # The reference asserts B and D equal and H a multiple of Hkv; it does
+    # not check K/V's S against q's, which its blocks would read past.
+    if (v.shape != k.shape or k.shape[0] != b or k.shape[2] != s
+            or k.shape[3] != d or hkv == 0 or h % hkv):
+        raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (need k == "
+                         f"v [B, Hkv, S, D] with H a multiple of Hkv)")
+    if not 0 < d <= _PA_MAX_D or s == 0:
+        raise ValueError(f"flash_attention needs 0 < D <= {_PA_MAX_D} and "
+                         f"S > 0, got D={d}, S={s}")
+    if block_q <= 0 or block_k <= 0:
+        raise ValueError(f"block sizes must be positive, got {block_q}, "
+                         f"{block_k}")
+    bq, bk = min(block_q, s), min(block_k, s)
+    if s % bq or s % bk:
+        raise ValueError(f"S={s} does not divide by the blocks ({bq}, {bk})")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"B={b}, H={h} exceed the kernel's grid (65535)")
+    eff_scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    if dev.type != "cuda":
+        return flash_attention_plain(q, k, v, causal=causal, scale=eff_scale,
+                                     block_q=bq, block_k=bk)
+    lib = load_library()
+    out = torch.empty_like(q)
+    if b and h:
+        with torch.cuda.device(dev):
+            _check(lib.flash_attention_launch(
+                _PA_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, h, hkv, s, d, eff_scale,
+                int(bool(causal)), _stream(dev)), "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    return out
+
+
 __all__ = [
-    "LAUNCHES", "NO_MATCH", "build_library", "lane_replay", "load_library",
-    "paged_attention", "protect_check", "reset_launches",
-    "translate_lookup",
+    "LAUNCHES", "NO_MATCH", "build_library", "build_transition_table",
+    "flash_attention", "lane_replay", "load_library", "msi_transition",
+    "msi_transition_vectorized", "paged_attention", "protect_check",
+    "reset_launches", "translate_lookup",
 ]

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
-from repro_torch.models.layers import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models.model import LM
 from repro_torch.serving.engine import PagedServer
 

@@ -30,6 +30,7 @@ import torch
 from repro_torch.core.control_plane import ControlPlane
 from repro_torch.core.switch import make_mmu
 from repro_torch.core.types import PAGE_SIZE, AccessType, MemAccess, Perm
+from repro_torch.device import resolve_device
 
 
 @dataclass
@@ -45,12 +46,16 @@ class PagedKVPool:
 
     One pool instance serves one model; pools are per-layer stacked, and
     ``k_pool[l]`` is layer ``l``'s contiguous ``[P, page, Hkv, hd]`` view.
+    The pools live on ``device``: the current CUDA device unless the caller
+    passes another (``device="cpu"``); without a card and without
+    ``device="cpu"`` the pool raises ``RuntimeError``.
     """
 
     def __init__(self, num_layers: int, num_pages: int, page_tokens: int,
                  num_kv_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.bfloat16, num_replicas: int = 1,
-                 mind_kw: dict | None = None, device="cpu"):
+                 mind_kw: dict | None = None, device=None):
+        device = resolve_device(device, "PagedKVPool")
         self.shape = (num_layers, num_pages, page_tokens, num_kv_heads,
                       head_dim)
         self.page_tokens = page_tokens

@@ -30,21 +30,6 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def resolve_device(device, what: str) -> torch.device:
-    """``device``, or the current CUDA device when it is None.  Never falls
-    back to the CPU on its own: without a card and without
-    ``device="cpu"`` it raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{what} runs on a CUDA device and none is available; pass "
-                f"device='cpu' to run it on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 # --------------------------------------------------------------------- #
 # Initializers.
 # --------------------------------------------------------------------- #

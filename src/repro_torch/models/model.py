@@ -23,6 +23,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -46,7 +47,7 @@ class LM:
                 "attn_3d_kernels ([d, H, hd] projections) is not ported: "
                 "ROADMAP.md Queue A item 8")
         self.cfg = cfg
-        self.device = L.resolve_device(device, "LM")
+        self.device = resolve_device(device, "LM")
 
     # ------------------------------------------------------------------ #
     # Parameters.

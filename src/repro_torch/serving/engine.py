@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
 from repro_torch.memory.paged_pool import PagedKVPool
 from repro_torch.models import layers as L
@@ -46,7 +47,7 @@ class PagedServer:
                  prefix_share: bool = True, num_replicas: int = 1,
                  device=None):
         cfg = model.cfg
-        self.device = L.resolve_device(device, "PagedServer")
+        self.device = resolve_device(device, "PagedServer")
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the server "
                              f"on {self.device}")

@@ -2,8 +2,8 @@
 
 Every ``repro_torch`` module imports with ``jax`` and ``repro`` blocked; no
 source file of the package (nor ``chip_smoke.py``) names either in an
-import; and the batched engine, the LM and the paged server refuse to run
-without a CUDA device unless the caller asks for the CPU.
+import; and the batched engine, the LM, the paged server and its KV pool
+refuse to run without a CUDA device unless the caller asks for the CPU.
 """
 
 import ast
@@ -95,6 +95,23 @@ def test_lm_and_server_refuse_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedServer(model, params, num_pages=8)
     PagedServer(model, params, num_pages=8, device="cpu")
+
+
+def test_paged_pool_refuses_without_cuda(monkeypatch):
+    from repro_torch.memory.paged_pool import PagedKVPool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    shape = dict(num_layers=1, num_pages=4, page_tokens=2, num_kv_heads=1,
+                 head_dim=4)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PagedKVPool(**shape, device=device)
+    with pytest.raises(RuntimeError, match="PagedKVPool"):
+        PagedKVPool(**shape)
+    pool = PagedKVPool(**shape, device="cpu")
+    assert pool.k_pool.device.type == "cpu" and pool.k_pool.shape == (
+        1, 4, 2, 1, 4)
+    assert pool.alloc_page(session=1) in range(4)
 
 
 def test_unported_systems_raise():

@@ -85,10 +85,11 @@ def test_trimmed_module_keeps_its_names(rel):
 
 
 def test_every_port_module_is_copied_trimmed_or_ported():
-    ported = {"__init__.py", "convert.py", "dataplane/engine.py",
-              "kernels/__init__.py", "kernels/ops.py",
+    ported = {"__init__.py", "convert.py", "device.py",
+              "dataplane/engine.py", "kernels/__init__.py", "kernels/ops.py",
               "kernels/range_match.py", "kernels/lane_replay.py",
-              "kernels/paged_attention.py", "models/__init__.py",
+              "kernels/paged_attention.py", "kernels/directory_msi.py",
+              "kernels/flash_attention.py", "models/__init__.py",
               "models/layers.py", "models/chunked_attention.py",
               "memory/__init__.py", "memory/paged_pool.py",
               "serving/__init__.py", "serving/engine.py",

@@ -18,6 +18,8 @@ from repro_torch.convert import lane_inputs_to_device, to_device, trace_from_num
 from repro_torch.core import traces as T
 from repro_torch.core.emulator import DisaggregatedRack
 from repro_torch.kernels import ops
+from repro_torch.kernels.directory_msi import msi_transition_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.lane_replay import lane_replay_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.range_match import (
@@ -229,3 +231,123 @@ def test_paged_server_on_cuda_equals_cpu(cuda, monkeypatch):
     assert gs == cs and gtok == ctok
     assert cs["cow"] >= 1 and cs["prefix_hits"] > 0
     assert cl == 0 and gl == gs["steps"] * cfg.num_layers
+
+
+# --------------------------------------------------------------------- #
+# MSI directory transitions.
+# --------------------------------------------------------------------- #
+def _directory(rng, s, nblades=4):
+    state = rng.integers(0, 3, s)
+    owner = np.where(state == 2, rng.integers(0, nblades, s), -1)
+    sharers = np.where(state == 2, 1 << np.maximum(owner, 0),
+                       np.where(state == 1, rng.integers(1, 1 << nblades, s),
+                                0))
+    return state, sharers, owner
+
+
+def _msi_case(name):
+    """The CPU tests' shapes (tests/test_torch_directory_msi.py), and a
+    zipf(1.1) batch over MIND's 30,000 directory slots."""
+    rng = np.random.default_rng(len(name))
+    if name == "zipf-30000":
+        s, b = 30000, 65536
+        p = 1.0 / np.arange(1, s + 1) ** 1.1
+        slots = rng.permutation(s)[rng.choice(s, b, p=p / p.sum())]
+        return (np.zeros(s), np.zeros(s), np.full(s, -1), slots,
+                rng.integers(0, 8, b), rng.random(b) < 0.5)
+    if name == "out-of-range":
+        s, b = 12, 300
+        return (rng.integers(-3, 6, s), rng.integers(-(1 << 31), 1 << 31, s),
+                rng.integers(-3, 40, s), rng.integers(-2 * s, 2 * s, b),
+                rng.integers(-40, 40, b), rng.integers(0, 3, b))
+    s, b, nreq = dict(sweep_16=(16, 40, 4), sweep_128=(128, 500, 4),
+                      hot_slot=(64, 400, 8), req_31=(16, 200, 32),
+                      empty=(8, 0, 4))[name]
+    slots = rng.integers(0, s, b)
+    if name == "hot_slot":
+        slots[100:250] = 7
+    return (*_directory(rng, s), slots, rng.integers(0, nreq, b),
+            rng.integers(0, 2, b))
+
+
+@pytest.mark.parametrize("name", ["sweep_16", "sweep_128", "hot_slot",
+                                  "req_31", "empty", "out-of-range",
+                                  "zipf-30000"])
+def test_msi_kernel_equals_plain(cuda, name):
+    args = [to_device(a, torch.int32, cuda) for a in _msi_case(name)]
+    before = ops.LAUNCHES["msi_transition"]
+    got = ops.msi_transition(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["msi_transition"] == before + (name != "empty")
+    _equal(got, msi_transition_plain(*args))
+
+
+def test_msi_vectorized_equals_kernel_on_distinct_slots(cuda):
+    rng = np.random.default_rng(1)
+    s, n = 30000, 8192
+    args = [to_device(a, torch.int32, cuda) for a in (
+        *_directory(rng, s, nblades=8), rng.permutation(s)[:n],
+        rng.integers(0, 8, n), rng.integers(0, 2, n))]
+    _equal(ops.msi_transition_vectorized(*args), ops.msi_transition(*args))
+
+
+# --------------------------------------------------------------------- #
+# Flash attention.
+# --------------------------------------------------------------------- #
+FLASH = {
+    # (b, h, hkv, s, d, causal, block): full-width heads at short S
+    "qwen3-4b": (1, 32, 8, 256, 128, True, 128),
+    "gemma-2b": (1, 8, 1, 256, 256, True, 128),
+    "full-d64": (2, 4, 4, 192, 64, False, 64),
+    # S not a multiple of the kernel's 64-row tiles; D padded to 128
+    "ragged-d80": (1, 2, 1, 100, 80, True, 50),
+    "ragged-full-d32": (2, 8, 8, 96, 32, False, 32),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("name", sorted(FLASH))
+def test_flash_attention_kernel_matches_plain(cuda, name, dtype,
+                                              monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    b, h, hkv, s, d, causal, blk = FLASH[name]
+    rng = np.random.default_rng(len(name))
+    q, k, v = (to_device(rng.standard_normal(shape) * sc, dtype, cuda)
+               for shape, sc in (((b, h, s, d), 0.5), ((b, hkv, s, d), 0.5),
+                                 ((b, hkv, s, d), 1.0)))
+    kw = dict(causal=causal, block_q=blk, block_k=blk)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, scale=d ** -0.5, block_q=blk,
+                                 block_k=blk, causal=causal)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    # fp32: summation order only.  bf16/fp16: one or two ulps of the
+    # output from that order, compared in fp32.
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_msi_and_flash_raise_instead_of_falling_back(cuda, monkeypatch):
+    class Broken:
+        def msi_transition_launch(self, *args):
+            return 700  # cudaErrorIllegalAddress
+
+        def flash_attention_launch(self, *args):
+            return 700
+
+    monkeypatch.setattr(ops, "_lib", Broken())
+    msi = [to_device(a, torch.int32, cuda) for a in _msi_case("sweep_16")]
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="msi_transition"):
+        ops.msi_transition(*msi)
+    q = torch.zeros((1, 2, 64, 32), device=cuda)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES == before
+    with pytest.raises(ValueError):  # is_write left on the CPU
+        ops.msi_transition(*msi[:5], msi[5].cpu())
+    with pytest.raises(ValueError):  # v left on the CPU
+        ops.flash_attention(q, q, q.cpu())

@@ -1,0 +1,140 @@
+"""repro_torch flash attention (plain version, on the CPU) vs the JAX package.
+
+``ops.flash_attention`` on CPU tensors (which takes
+``flash_attention_plain``) is held to the Pallas kernel run in interpret
+mode (``repro.kernels.ops.flash_attention``) and to the oracle
+``repro.kernels.ref.flash_attention_ref`` over the four cases of
+``tests/test_kernels.py``'s sweep at that file's 3e-4, plus the bf16 case,
+whose outputs are compared in fp32 at 2e-2 (one or two bf16 ulps of
+outputs of order one), and the gemma-2b head shape (one KV head, D = 256).
+GQA by index equals the call on K/V repeated to every query head, and the
+wrapper keeps the reference's block contract.  The CUDA kernel is held to
+the plain version on the card by ``tests/test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as K
+from repro.kernels import ref as R
+
+from repro_torch.kernels import ops as P
+from repro_torch.kernels.flash_attention import flash_attention_plain
+
+
+def make_qkv(rng, b, h, hk, s, d):
+    q = rng.standard_normal((b, h, s, d)).astype(np.float32) * 0.5
+    k = rng.standard_normal((b, hk, s, d)).astype(np.float32) * 0.5
+    v = rng.standard_normal((b, hk, s, d)).astype(np.float32)
+    return q, k, v
+
+
+def port(q, k, v, **kw):
+    return P.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), **kw)
+
+
+def pallas(q, k, v, **kw):
+    return np.asarray(K.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                        **kw))
+
+
+def oracle(q, k, v, causal=True):
+    rep = q.shape[1] // k.shape[1]
+    return np.asarray(R.flash_attention_ref(q, np.repeat(k, rep, 1),
+                                            np.repeat(v, rep, 1),
+                                            causal=causal))
+
+
+CASES = {
+    # tests/test_kernels.py's sweep: (b, h, hk, s, d, bq, bk, causal)
+    "mha-causal": (2, 4, 4, 128, 64, 64, 64, True),
+    "gqa4-causal": (1, 8, 2, 256, 32, 128, 128, True),
+    "mqa-d128": (2, 2, 1, 64, 128, 32, 32, True),
+    "mha-full": (1, 4, 4, 128, 64, 64, 64, False),
+    # gemma-2b's heads: one KV head of 256; unequal blocks
+    "gemma-2b": (1, 4, 1, 128, 256, 64, 32, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_pallas_and_oracle(name):
+    b, h, hk, s, d, bq, bk, causal = CASES[name]
+    q, k, v = make_qkv(np.random.default_rng(len(name)), b, h, hk, s, d)
+    kw = dict(causal=causal, block_q=bq, block_k=bk)
+    got = port(q, k, v, **kw)
+    assert got.dtype == torch.float32 and got.shape == (b, h, s, d)
+    got = got.numpy()
+    np.testing.assert_allclose(got, pallas(q, k, v, **kw), rtol=3e-4,
+                               atol=3e-4)
+    np.testing.assert_allclose(got, oracle(q, k, v, causal), rtol=3e-4,
+                               atol=3e-4)
+
+
+def test_bf16_matches_pallas_and_oracle():
+    """``tests/test_kernels.py``'s bf16 case, compared in fp32."""
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal((1, 2, 64, 64)).astype(ml_dtypes.bfloat16)
+               for _ in range(3))
+    got = P.flash_attention(*(torch.from_numpy(a.astype(np.float32)).to(
+        torch.bfloat16) for a in (q, k, v)), block_q=32, block_k=32)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    want = pallas(q, k, v, block_q=32, block_k=32).astype(np.float32)
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(
+        got, oracle(*(a.astype(np.float32) for a in (q, k, v))), rtol=2e-2,
+        atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gqa_by_index_equals_repeated_kv(causal):
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(
+        np.random.default_rng(2), 2, 8, 2, 64, 32))
+    got = P.flash_attention(q, k, v, causal=causal, block_q=32, block_k=16)
+    want = P.flash_attention(q, k.repeat_interleave(4, 1),
+                             v.repeat_interleave(4, 1), causal=causal,
+                             block_q=32, block_k=16)
+    torch.testing.assert_close(got, want)
+
+
+def test_explicit_scale_and_blocks_larger_than_s():
+    """A given scale is used as is; blocks past S shrink to S."""
+    q, k, v = make_qkv(np.random.default_rng(3), 1, 2, 1, 48, 16)
+    got = port(q, k, v, scale=0.3, block_q=128, block_k=128).numpy()
+    want = pallas(q, k, v, scale=0.3, block_q=128, block_k=128)
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+
+
+def test_plain_is_the_wrappers_cpu_path():
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(
+        np.random.default_rng(4), 1, 4, 2, 64, 32))
+    before = P.LAUNCHES["flash_attention"]
+    got = P.flash_attention(q, k, v, block_q=32, block_k=32)
+    want = flash_attention_plain(q, k, v, causal=True, scale=32 ** -0.5,
+                                 block_q=32, block_k=32)
+    assert torch.equal(got, want)
+    assert P.LAUNCHES["flash_attention"] == before  # a CPU call is no launch
+
+
+def test_wrapper_keeps_the_block_contract():
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(
+        np.random.default_rng(5), 1, 2, 1, 96, 16))
+    with pytest.raises(ValueError, match="divide"):  # 96 % 64
+        P.flash_attention(q, k, v, block_q=64, block_k=32)
+    with pytest.raises(ValueError, match="divide"):
+        P.flash_attention(q, k, v, block_q=32, block_k=64)
+    P.flash_attention(q, k, v, block_q=32, block_k=96)
+    with pytest.raises(ValueError):  # K/V shorter than q
+        P.flash_attention(q, k[:, :, :64], v[:, :, :64], block_q=32,
+                          block_k=32)
+    with pytest.raises(ValueError):  # 2 query heads over 3 KV heads
+        P.flash_attention(q, k.expand(1, 3, 96, 16).contiguous(),
+                          v.expand(1, 3, 96, 16).contiguous())
+    with pytest.raises(TypeError):
+        P.flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError):  # D above 256
+        z = torch.zeros((1, 1, 8, 264))
+        P.flash_attention(z, z, z)
