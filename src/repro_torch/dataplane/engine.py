@@ -137,6 +137,7 @@ from repro_torch.dataplane.tables import (
     build_dataplane_state,
     build_region_table,
 )
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.range_match import NO_MATCH
 from repro_torch.telemetry import events as tev
@@ -156,19 +157,6 @@ def _popcount32(a: np.ndarray) -> int:
     return int(np.unpackbits(np.ascontiguousarray(a).view(np.uint8)).sum())
 
 
-def _resolve_device(device) -> torch.device:
-    """The engine's device: ``cuda`` unless the caller names another.
-    Never falls back to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the batched engine runs its kernels on a CUDA device and "
-                "none is available; pass engine_options={'device': 'cpu'} "
-                "to replay with the plain PyTorch versions on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
-
-
 def _host(t: torch.Tensor) -> np.ndarray:
     """Copy a result back to NumPy (synchronizes with the device)."""
     return t.cpu().numpy()
@@ -180,7 +168,9 @@ class BatchedDataPlane:
 
     def __init__(self, rack, chunk_size: int = 65536,
                  lanes: int | None = None, device=None):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(
+            device, "the batched engine",
+            cpu_hint="engine_options={'device': 'cpu'}")
         # The packed int32 kernel output words bound the configuration:
         # w1 carries the invalidation mask at bits 7..30 (<= 24 blades)
         # and w2 packs two 15-bit page counts, each bounded by one

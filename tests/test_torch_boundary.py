@@ -66,15 +66,18 @@ def test_source_names_no_jax_or_repro(path):
 def test_batched_engine_refuses_without_cuda(monkeypatch):
     from repro_torch.core.emulator import DisaggregatedRack
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    rack = DisaggregatedRack(system="mind", num_compute_blades=1,
-                             threads_per_blade=2, engine="batched")
     from repro_torch.core import traces as T
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     trace = T.uniform_trace(num_threads=2, read_ratio=0.5, sharing_ratio=0.5,
                             accesses_per_thread=10)
-    with pytest.raises(RuntimeError, match="engine_options=.*'device': 'cpu'"):
-        rack.run(trace)
+    for options in ({}, {"device": "cuda"}):
+        rack = DisaggregatedRack(system="mind", num_compute_blades=1,
+                                 threads_per_blade=2, engine="batched",
+                                 engine_options=options)
+        with pytest.raises(RuntimeError,
+                           match="engine_options=.*'device': 'cpu'"):
+            rack.run(trace)
 
 
 def test_lm_and_server_refuse_without_cuda(monkeypatch):

@@ -313,8 +313,11 @@ def test_flash_attention_kernel_matches_plain(cuda, name, dtype,
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     b, h, hkv, s, d, causal, blk = FLASH[name]
     rng = np.random.default_rng(len(name))
+    # Logits of std 3: each row's softmax is held by a few keys anywhere in
+    # its range, so outputs are O(1) and a dropped key tile or a causal
+    # range off by one moves them far past the tolerance.
     q, k, v = (to_device(rng.standard_normal(shape) * sc, dtype, cuda)
-               for shape, sc in (((b, h, s, d), 0.5), ((b, hkv, s, d), 0.5),
+               for shape, sc in (((b, h, s, d), 3.0), ((b, hkv, s, d), 1.0),
                                  ((b, hkv, s, d), 1.0)))
     kw = dict(causal=causal, block_q=blk, block_k=blk)
     before = ops.LAUNCHES["flash_attention"]
