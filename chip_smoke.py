@@ -9,14 +9,18 @@ exits nonzero):
 
 1. env      — the card's name and power limit.
 2. build    — compile src/repro_torch/kernels/csrc/*.cu for sm_90a, one
-              nvcc per source, all at once.
+              nvcc per source, all at once; ptxas's register and spill
+              lines, and the HGMMA (wgmma) instructions of each kernel
+              counted in `cuobjdump -sass` of the library.
 3. serve    — PagedServer serving qwen3-4b at full width (36 layers,
               d_model 2560, bf16, random weights from a seed): 16 requests
               of 500-token prompts sharing a 256-token prefix, two of them
               identical (a copy-on-write), 64 tokens each, max_batch 8, a
               4,096-page pool of 16 tokens.  Its paged_attention launch
               count is the one reported; its widest decode call is
-              recorded for phase 4.
+              recorded for phase 4.  A traced window of decode steps
+              names the device time of both paged kernels (split and
+              combine).
 4. kernels  — every kernel against its plain PyTorch version on the card,
               on the inputs its main path gives it.  The replay kernels,
               bytewise, on the inputs recorded from one run of the main
@@ -30,7 +34,9 @@ exits nonzero):
               version, its byte bound and scaled_dot_product_attention on
               the same K/V gathered to dense; extra cases: an empty
               sequence, ragged last pages, unused block-table entries,
-              the gemma-2b shape and G = 1 at D = 256.
+              the gemma-2b shape, G = 1 at D = 256, and lengths
+              [1, 16, 17, 563] in one batch (splits wholly past the short
+              sequences).
    kernel_bench — the kernels the JAX package reaches only through its
               kernel API (repro.kernels.ops, driven by
               benchmarks/kernel_bench.py), through the port's
@@ -45,11 +51,13 @@ exits nonzero):
               msi_transition_vectorized against it on 8,192 distinct
               slots; and flash_attention at S 4,096 with the heads of
               qwen3-4b (32/8, D 128) and gemma-2b (8/1, D 256), causal
-              bf16 (2e-2) and fp32 (1e-4), and qwen3-4b non-causal bf16,
-              on logits of std 3 (outputs of order 1), timed beside its
-              plain version and
-              scaled_dot_product_attention.  The two kernels' launch counts
-              are this phase's.
+              bf16 (2e-2) and fp32 (1e-4), qwen3-4b causal fp16 and
+              non-causal bf16, and a ragged qwen3-4b causal bf16 case
+              (B 2, S 1,000, blocks of 125), on logits of std 3 (outputs
+              of order 1), timed beside its plain version and
+              scaled_dot_product_attention; bf16/fp16 must take the
+              tensor-core route (ops.FLASH_ROUTES).  The two kernels'
+              launch counts are this phase's.
 5. paged_vs_dense — qwen3-4b at full width in fp32: one paged decode step
               through the kernel against the dense-cache decode_step on
               the same prompt, at 2e-3.
@@ -118,8 +126,10 @@ KERNELS = {
     "msi_transition": dict(
         source="src/repro_torch/kernels/csrc/directory_msi.cu",
         replaces="src/repro/kernels/directory_msi.py:82"),
+    # The reported case (bf16) runs the tensor-core kernel; fp32 and other
+    # head widths run the SIMT one (ops._flash_route).
     "flash_attention": dict(
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention.py:25"),
 }
 # Kernels on no path of the system: the JAX package reaches them through
@@ -138,6 +148,14 @@ FLASH = {"qwen3-4b": dict(heads=32, kv_heads=8, head_dim=128),
          "gemma-2b": dict(heads=8, kv_heads=1, head_dim=256)}
 FLASH_S = 4096
 FLASH_LOGIT_STD = 3.0
+# Flash cases: (heads of, causal, dtype, B, S, block).
+FLASH_CASES = (
+    [("qwen3-4b", True, "bfloat16", 1, FLASH_S, 128),
+     ("gemma-2b", True, "bfloat16", 1, FLASH_S, 128),
+     ("qwen3-4b", True, "float16", 1, FLASH_S, 128),
+     ("qwen3-4b", False, "bfloat16", 1, FLASH_S, 128),
+     ("qwen3-4b", True, "bfloat16", 2, 1000, 125)]
+    + [(arch, True, "float32", 1, FLASH_S, 128) for arch in FLASH])
 
 
 def emit(obj) -> None:
@@ -152,16 +170,24 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+# Device cycles the card sleeps before a timed loop (~10 ms), so that the
+# host enqueues the loop ahead of the device and host dispatch between
+# launches does not count as device time.
+HEAD_START_CYCLES = 20_000_000
+
+
 def time_ms(fn, reps: int, device, warm: bool = True) -> float:
-    """Mean wall time of ``fn()`` per call: CUDA events on the card, the
-    host clock elsewhere (CPU rehearsals).  ``warm=False`` skips the
-    warm-up call, for a function that has just run on these inputs."""
+    """Mean device time of ``fn()`` per call: CUDA events on the card (the
+    loop enqueued behind a device sleep), the host clock elsewhere (CPU
+    rehearsals).  ``warm=False`` skips the warm-up call, for a function
+    that has just run on these inputs."""
     import torch
 
     if warm:
         fn()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        torch.cuda._sleep(HEAD_START_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -179,8 +205,8 @@ def time_ms(fn, reps: int, device, warm: bool = True) -> float:
 def time_ms_cold(fn, reps: int, device) -> float:
     """Mean time of ``fn()`` per call with the L2 cache flushed before each
     call (a 64 MB write, not timed), as a decode step finds it after the
-    other layers: CUDA events around each call on the card, the host clock
-    elsewhere."""
+    other layers: CUDA events around each call on the card (the loop
+    enqueued behind a device sleep), the host clock elsewhere."""
     import torch
 
     if device.type != "cuda":
@@ -189,6 +215,8 @@ def time_ms_cold(fn, reps: int, device) -> float:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize(device)
+    torch.cuda._sleep(HEAD_START_CYCLES)
     for start, end in events:
         flush.zero_()
         start.record()
@@ -203,6 +231,24 @@ def sync(device) -> None:
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def sass_hgmma(lib) -> dict:
+    """HGMMA (wgmma) instructions of each kernel in the built library, from
+    ``cuobjdump -sass`` (beside the ``nvcc`` that built it); kernels
+    without any are left out."""
+    from repro_torch.kernels import ops
+
+    tool = Path(ops._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+        elif fn and "HGMMA" in ln:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 def bound_ms(nbytes: float, nops: float, ops_s: float = ALU_OPS_S):
@@ -317,7 +363,9 @@ def phase_kernels(device, scale: float = 1.0):
                 translate_lookup_plain(v_d, translate))
     rows["translate_lookup"] = dict(
         max_abs_err=err, shape=dict(B=B, T=T),
-        ms=time_ms(lambda: ops.translate_lookup(v_d, translate), 20, device),
+        # Cold, as the main path finds its one call a trace.
+        ms=time_ms_cold(lambda: ops.translate_lookup(v_d, translate), 20,
+                        device),
         plain_ms=time_ms(lambda: translate_lookup_plain(v_d, translate), 3,
                          device),
         bound=bound_ms(B * 8 + T * 32 + B * 8, B * T))
@@ -326,8 +374,8 @@ def phase_kernels(device, scale: float = 1.0):
                 (want,))
     rows["protect_check"] = dict(
         max_abs_err=err, shape=dict(B=B, T=P), allowed=int(want.sum()),
-        ms=time_ms(lambda: ops.protect_check(p_d, v2_d, n_d, protect), 20,
-                   device),
+        ms=time_ms_cold(lambda: ops.protect_check(p_d, v2_d, n_d, protect),
+                        20, device),
         plain_ms=time_ms(lambda: protect_check_plain(p_d, v2_d, n_d, protect),
                          3, device),
         bound=bound_ms(B * 16 + P * 32 + B, B * P))
@@ -564,10 +612,15 @@ def profile_decode(srv, prompts, device, steps: int = 8):
                   key=lambda r: -r[2])
     busy_ms = sum(ms for _, _, ms in kern)
     seen = busy_ms > 0
+    # Both kernels of paged_attention: the split pass and the combine.
+    paged = {name: [dict(name=k[:90], count=c, ms=ms, share=ms / busy_ms)
+                    for k, c, ms in kern if name in k]
+             for name in ("paged_split_kernel", "paged_combine_kernel")}
     return dict(steps=steps, wall_ms=wall * 1e3,
                 step_ms=wall * 1e3 / steps,
                 device_busy_ms=busy_ms if seen else None,
                 device_idle_share=1 - busy_ms / (wall * 1e3) if seen else None,
+                paged_kernels=paged if seen else None,
                 top_kernels=[dict(name=k[:90], count=c, ms=ms)
                              for k, c, ms in kern[:10]])
 
@@ -640,7 +693,10 @@ def paged_kernel_row(device, recorded):
             ("seq_len_0_ragged", dict(b=3, hq=32, hkv=8, d=128, page=16,
                                       maxp=8, lens=[0, 77, 128])),
             ("gemma_2b", dict(b=8, hq=8, hkv=1, d=256, page=16, maxp=40)),
-            ("g1_d256", dict(b=4, hq=4, hkv=4, d=256, page=16, maxp=8))):
+            ("g1_d256", dict(b=4, hq=4, hkv=4, d=256, page=16, maxp=8)),
+            # splits wholly past the short sequences beside a long one
+            ("mixed_lens", dict(b=4, hq=32, hkv=8, d=128, page=16, maxp=40,
+                                lens=[1, 16, 17, 563]))):
         case = paged_case(rng, dtype=torch.bfloat16, device=device, **kw)
         row = {}
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
@@ -649,7 +705,7 @@ def paged_kernel_row(device, recorded):
             row[str(dt).split(".")[1]] = held(
                 f"paged_attention ({name}, {dt})", got,
                 paged_attention_plain(*args), tol)
-            if "lens" in kw and got[0].float().abs().max() != 0:
+            if name == "seq_len_0_ragged" and got[0].float().abs().max() != 0:
                 raise AssertionError("seq_len 0 did not give zeros")
         extra[name] = row
 
@@ -680,6 +736,7 @@ def paged_kernel_row(device, recorded):
     library_ms = time_ms_cold(
         lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
                                                enable_gqa=True), 50, device)
+    bound = bound_ms(nbytes, nops, TENSOR_OPS_S)
     return dict(
         max_abs_err=max(err, err32), max_abs_err_bf16=err,
         max_abs_err_fp32=err32, tolerance=dict(bf16=2e-2, fp32=1e-5),
@@ -687,8 +744,8 @@ def paged_kernel_row(device, recorded):
                    seq_lens=sl.tolist(), kv_pages_read=pages,
                    dtype=str(q.dtype).split(".")[1]),
         extra=extra, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        library_err=lib_err, bytes=nbytes,
-        bound=bound_ms(nbytes, nops, TENSOR_OPS_S))
+        library_err=lib_err, bytes=nbytes, bound=bound,
+        share_of_bound=bound[0] / ms)
 
 
 # --------------------------------------------------------------------- #
@@ -857,47 +914,52 @@ def phase_kernel_bench(device, scale: float = 1.0):
                           device)))
 
     # ---- flash_attention at the prefill width of two configs -------------
-    fs = FLASH_S if scale >= 1 else 256
     flash = {}
-    cases = [(arch, True, torch.bfloat16) for arch in FLASH]
-    cases += [("qwen3-4b", False, torch.bfloat16)]
-    cases += [(arch, True, torch.float32) for arch in FLASH]
-    for arch, causal, dtype in cases:
+    for arch, causal, dname, fb, fs, blk in FLASH_CASES:
+        if scale < 1:  # CPU rehearsal
+            fs, blk = (256, 128) if fs == FLASH_S else (fs // 4, blk // 5)
+        dtype = getattr(torch, dname)
         c = FLASH[arch]
         h, hkv, d = c["heads"], c["kv_heads"], c["head_dim"]
         # Logits of std FLASH_LOGIT_STD: each row's softmax is held by a few
         # keys anywhere in its range, so outputs are O(1) and a dropped key
         # tile or a causal range off by one moves them by O(1), far past
         # the tolerance.
-        q, k, v = dev(rng.standard_normal((1, h, fs, d)) * FLASH_LOGIT_STD,
-                      rng.standard_normal((1, hkv, fs, d)),
-                      rng.standard_normal((1, hkv, fs, d)), dtype=dtype)
-        fkw = dict(causal=causal, block_q=128, block_k=128)
+        q, k, v = dev(rng.standard_normal((fb, h, fs, d)) * FLASH_LOGIT_STD,
+                      rng.standard_normal((fb, hkv, fs, d)),
+                      rng.standard_normal((fb, hkv, fs, d)), dtype=dtype)
+        fkw = dict(causal=causal, block_q=blk, block_k=blk)
         tol = 1e-4 if dtype == torch.float32 else 2e-2
-        name = (f"{arch} {'causal' if causal else 'full'} "
-                f"{str(dtype).split('.')[1]}")
+        name = f"{arch} {'causal' if causal else 'full'} {dname}"
+        if fs != FLASH_S:
+            name += f" B{fb} S{fs}"
         want = flash_attention_plain(q, k, v, scale=d ** -0.5, **fkw)
         out_rms = float(want.float().pow(2).mean().sqrt())
+        routes = dict(ops.FLASH_ROUTES)
         err = held(f"flash_attention ({name})",
                    ops.flash_attention(q, k, v, **fkw), want, tol)
+        route = [r for r in routes if ops.FLASH_ROUTES[r] > routes[r]]
+        if device.type == "cuda" and route != [ops._flash_route(dtype, d)]:
+            raise AssertionError(f"flash_attention ({name}) took {route}")
         lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                              enable_gqa=True)
         lib_err = held(f"scaled_dot_product_attention ({name}, yardstick)",
                        lib, want, tol)
         del lib, want
-        nbytes, nops, bound = flash_bound(1, h, hkv, fs, d, causal, dtype)
+        nbytes, nops, bound = flash_bound(fb, h, hkv, fs, d, causal, dtype)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **fkw), 20, device)
         flash[name] = dict(
-            max_abs_err=err, tolerance=tol,
-            shape=dict(B=1, H=h, Hkv=hkv, S=fs, D=d, causal=causal,
-                       dtype=str(dtype).split(".")[1]),
-            ms=time_ms(lambda: ops.flash_attention(q, k, v, **fkw), 5,
-                       device),
+            max_abs_err=err, tolerance=tol, route=route,
+            shape=dict(B=fb, H=h, Hkv=hkv, S=fs, D=d, causal=causal,
+                       block=blk, dtype=dname),
+            ms=ms,
             plain_ms=time_ms(lambda: flash_attention_plain(
                 q, k, v, scale=d ** -0.5, **fkw), 2, device),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), 20, device),
             library_err=lib_err, out_rms=out_rms, bytes=nbytes, flops=nops,
-            bound=bound)
+            bound=bound, share_of_bound=bound[0] / ms,
+            tflops=nops / ms / 1e9)
         del q, k, v
     return dict(bench=cells, msi_transition=msi, flash_attention=flash)
 
@@ -1076,8 +1138,14 @@ def main() -> int:
     logs = {p.name: [ln for ln in p.read_text().splitlines()
                      if "registers" in ln or "spill" in ln]
             for p in sorted(ops.BUILD_DIR.glob("*.log"))}
-    emit({"phase": "build", "seconds": time.perf_counter() - t,
-          "library": str(lib.relative_to(ROOT)), "ptxas": logs})
+    build_s = time.perf_counter() - t
+    hgmma = sass_hgmma(lib)
+    if not any("flash_sm90_kernel" in k for k in hgmma):
+        raise AssertionError(f"no HGMMA in the tensor-core flash kernel: "
+                             f"{hgmma}")
+    emit({"phase": "build", "seconds": build_s,
+          "library": str(lib.relative_to(ROOT)), "ptxas": logs,
+          "hgmma": hgmma})
 
     serve, recorded = phase_serve(device)
     emit({"phase": "serve", **serve})
@@ -1096,7 +1164,8 @@ def main() -> int:
         raise AssertionError(f"kernel_bench launched no kernel of "
                              f"{bench_launches}")
     emit({"phase": "kernel_bench", "seconds": time.perf_counter() - t,
-          "launches": bench_launches, **bench})
+          "launches": bench_launches, "flash_routes": dict(ops.FLASH_ROUTES),
+          **bench})
     kern["msi_transition"] = bench["msi_transition"]
     top = "qwen3-4b causal bfloat16"
     kern["flash_attention"] = dict(
@@ -1121,6 +1190,7 @@ def main() -> int:
                           max_abs_err=k["max_abs_err"], ms=k["ms"],
                           plain_ms=k["plain_ms"], bound_ms=b, bound_by=by,
                           library_ms=k.get("library_ms"),
+                          share_of_bound=b / k["ms"],
                           held_equal=k["max_abs_err"] == 0,
                           tolerance=k.get("tolerance", 0), shape=k["shape"]))
     emit({"kernels": lines})

@@ -1,0 +1,594 @@
+// Blocked (flash) attention, forward only, on Hopper's tensor cores: the
+// bf16/fp16 route at head widths 64, 128 and 256.
+//
+// Replaces the Pallas TPU kernel
+//   src/repro/kernels/flash_attention.py::_flash_kernel  (flash_attention)
+// for those inputs; fp32 and the other widths stay on the SIMT kernel in
+// flash_attention.cu.  repro_torch.kernels.ops.flash_attention picks the
+// route (ops._flash_route).
+//
+// What it computes is flash_attention.cu's function: out = softmax(q k^T *
+// scale) v over q [B, H, S, D] and k, v [B, Hkv, S, D] (query head h reads
+// KV head h / (H / Hkv)), logits and (m, l, acc) in fp32; with causal a key
+// after its query is masked to -1e30, keys past S get no weight, key tiles
+// wholly above the diagonal are skipped and rows past S are not stored;
+// out = acc / max(l, 1e-30) in q's dtype.  P is rounded to q's dtype before
+// P V (the tensor cores' operand type); l sums the fp32 probabilities.
+//
+// Bound.  At S = 4,096 attention does ~4*S*D flops per query row for 2*S*D
+// K/V elements: far above the ~295 flops/byte balance, so the tensor-core
+// rate bounds it.
+//
+// Design (FlashAttention-3's forward, without its warpgroup ping-pong).
+// One CTA per (128-query tile, head, batch), heaviest causal tiles first;
+// three warpgroups: a producer (one thread issues every copy, setmaxnreg
+// gives its registers away) and two consumers of 64 query rows each.
+// - Copies are TMA (cp.async.bulk.tensor, 3-d maps [B*heads, S, D] built on
+//   the host with cuTensorMapEncodeTiled, passed as __grid_constant__):
+//   the Q tile once, then K and V tiles through a ring of 3 stages (2 at
+//   D 256), full/empty mbarriers per stage.  Every box is 64 elements (128 bytes)
+//   wide with the 128-byte swizzle, so a tile is D/64 column blocks of
+//   rows x 128 bytes, 1024-byte aligned.  Rows past S come in as zeros.
+// - Per warpgroup the softmax of key tile t overlaps the P V product of
+//   tile t-1 (two wgmma groups in flight, FlashAttention-3's intra-
+//   warpgroup pipelining).
+// - S = Q K^T by wgmma m64nBKk16 with both operands in shared memory,
+//   K-major (descriptor: 128-byte swizzle, 1024-byte stride between 8-row
+//   groups; one k16 step is +32 bytes inside the swizzle row).
+// - Online softmax on the accumulator fragment (a thread holds rows r and
+//   r + 8 of its warp's 16, two columns in each 8-column block): row max and
+//   sum over the quad by shuffles, exp2f with scale * log2(e) folded in.
+// - O += P V by wgmma m64nDk16 with P from registers (the S fragment is the
+//   A fragment, packed to q's dtype) and V from shared memory MN-major (the
+//   descriptor's transpose bit; 1024 bytes between 8-key groups, BK*128
+//   bytes between 64-column blocks).
+// - Key tile 128 at D 64/128, 64 at D 256 (O is 128 fp32 registers a
+//   thread there).  Shared memory: 112/224/192 KB at D 64/128/256.
+//
+// Plain C interface, bound with ctypes: the launcher returns the CUDA error
+// code of its launch (0 on success), or kEncodeFailed + the CUresult when a
+// tensor map cannot be encoded, and never synchronises.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int kBq = 128;       // query rows per CTA: two consumer warpgroups
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kEncodeFailed = 100000;
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = D == 256 ? 64 : 128;   // keys per tile
+  static constexpr int STAGES = D == 256 ? 2 : 3;  // K/V ring depth
+  static constexpr int CB = D / 64;                // 128-byte column blocks
+  static constexpr int Q_BYTES = kBq * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;  // + alignment slack
+};
+
+// ---- wgmma wrappers (m64nNk16, fp32 accumulators) -------------------------
+// wgmma_ss_*: A and B from shared memory, both K-major.  wgmma_rs_*: A from
+// registers, B from shared memory MN-major (transposed), always accumulating.
+__device__ __forceinline__ void wgmma_ss_n64_bf16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128_bf16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256_bf16(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64_f16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128_f16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_f16(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_f16(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256_f16(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if constexpr (N == 64) wgmma_ss_n64_bf16(d, da, db, scale_d);
+    else wgmma_ss_n128_bf16(d, da, db, scale_d);
+  } else {
+    if constexpr (N == 64) wgmma_ss_n64_f16(d, da, db, scale_d);
+    else wgmma_ss_n128_f16(d, da, db, scale_d);
+  }
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if constexpr (N == 64) wgmma_rs_n64_bf16(d, a, db);
+    else if constexpr (N == 128) wgmma_rs_n128_bf16(d, a, db);
+    else wgmma_rs_n256_bf16(d, a, db);
+  } else {
+    if constexpr (N == 64) wgmma_rs_n64_f16(d, a, db);
+    else if constexpr (N == 128) wgmma_rs_n128_f16(d, a, db);
+    else wgmma_rs_n256_f16(d, a, db);
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle; byte offsets in 16 B.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// ---- mbarrier and TMA ------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One consumer warpgroup: 64 query rows against every key tile it needs.
+// Fragment of an m64nN accumulator: register n*4 + i*2 + j holds row
+// warp*16 + lane/4 + 8*i, column n*8 + (lane%4)*2 + j.
+//
+// The loop overlaps tile t's softmax with tile t-1's P V: it issues
+// S_t = Q K_t^T and O += P_{t-1} V_{t-1} as two wgmma groups, waits for
+// the first, runs the softmax on S_t while the second runs, then waits for
+// it, releases stage t-1, rescales O and packs P_t.
+template <typename T, int D>
+__device__ __forceinline__ void consume(uint32_t q_s, uint32_t kv_s, uint32_t full0, uint32_t empty0,
+                                        uint32_t qbar, T* __restrict__ out, int H, int S, int b,
+                                        int h, int q0, int n_tiles, int cw, float scale_log2,
+                                        int causal) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  constexpr int NS = BK / 2;  // S accumulator registers
+  constexpr int NO = D / 2;   // O accumulator registers
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = q0 + cw * 64;                       // the warpgroup's first row
+  const int r_lo = row0 + warp * 16 + lane / 4;        // this thread's rows r_lo, r_lo + 8
+  const int my_tiles = causal ? min(n_tiles, min(row0 + 63, S - 1) / BK + 1) : n_tiles;
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
+  const uint32_t qa = q_s + cw * 64 * 128;
+
+  auto k_tile = [&](int t) { return kv_s + (t % C::STAGES) * 2 * C::KV_BYTES; };
+  auto wait_tile = [&](int t) { mbar_wait(full0 + 8 * (t % C::STAGES), (t / C::STAGES) & 1); };
+  auto release_tile = [&](int t) { mbar_arrive(empty0 + 8 * (t % C::STAGES)); };
+  // S = Q K_t^T, issued as one wgmma group.
+  auto issue_qk = [&](float (&s)[NS], int t) {
+    const uint32_t ks = k_tile(t);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = kk / 4, inner = (kk % 4) * 32;
+      wgmma_ss<BK, T>(s, desc_sw128(qa + col * kBq * 128 + inner, 16, 1024),
+                      desc_sw128(ks + col * BK * 128 + inner, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V_t, issued as one wgmma group.
+  auto issue_pv = [&](const uint32_t (&pa)[BK / 16][4], int t) {
+    const uint32_t vs = k_tile(t) + C::KV_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D, T>(o, pa[kk], desc_sw128(vs + kk * 16 * 128, BK * 128, 1024));
+    wgmma_commit();
+  };
+  // Scale, mask and exponentiate S_t in place; returns O's rescale factors.
+  auto softmax = [&](float (&s)[NS], int t, float& a0, float& a1) {
+    const int k0 = t * BK;
+    const bool edge = (causal && k0 + BK - 1 > row0) || k0 + BK > S;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = k0 + n * 8 + (lane % 4) * 2 + j;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float x = s[n * 4 + i * 2 + j] * scale_log2;
+          if (edge) {
+            if (key >= S) x = -INFINITY;  // past the sequence: no weight
+            else if (causal && key > r_lo + 8 * i) x = kMasked;
+          }
+          s[n * 4 + i * 2 + j] = x;
+        }
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n * 4 + 0], s[n * 4 + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n * 4 + 2], s[n * 4 + 3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    a0 = exp2f(m0 - mx0);
+    a1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      s[n * 4 + 0] = exp2f(s[n * 4 + 0] - mx0);
+      s[n * 4 + 1] = exp2f(s[n * 4 + 1] - mx0);
+      s[n * 4 + 2] = exp2f(s[n * 4 + 2] - mx1);
+      s[n * 4 + 3] = exp2f(s[n * 4 + 3] - mx1);
+      ps0 += s[n * 4 + 0] + s[n * 4 + 1];
+      ps1 += s[n * 4 + 2] + s[n * 4 + 3];
+    }
+    l0 = l0 * a0 + ps0;  // a per-thread partial: the quad sums it at the end
+    l1 = l1 * a1 + ps1;
+  };
+  // The S fragment is the A fragment of P V, packed to q's dtype.
+  auto pack_p = [&](const float (&s)[NS], uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack2<T>(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  auto rescale_o = [&](float a0, float a1) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n * 4 + 0] *= a0;
+      o[n * 4 + 1] *= a0;
+      o[n * 4 + 2] *= a1;
+      o[n * 4 + 3] *= a1;
+    }
+  };
+
+  float s[NS];
+  uint32_t pa[BK / 16][4];
+  float a0, a1;
+  mbar_wait(qbar, 0);
+  wait_tile(0);
+  issue_qk(s, 0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(s, 0, a0, a1);  // O is still zero: no rescale
+  pack_p(s, pa);
+  for (int t = 1; t < my_tiles; ++t) {
+    wait_tile(t);
+    issue_qk(s, t);
+    issue_pv(pa, t - 1);
+    wgmma_wait<1>();  // S_t is in; P_{t-1} V_{t-1} still runs
+    fence_regs(s);
+    softmax(s, t, a0, a1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release_tile(t - 1);
+    rescale_o(a0, a1);
+    pack_p(s, pa);
+  }
+  issue_pv(pa, my_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs(o);
+  release_tile(my_tiles - 1);
+  // Tiles wholly above this warpgroup's diagonal: released once they are
+  // in (so an arrival never counts toward an earlier phase of the stage).
+  for (int t = my_tiles; t < n_tiles; ++t) {
+    wait_tile(t);
+    release_tile(t);
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+  T* oh = out + (static_cast<int64_t>(b) * H + h) * S * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= S) continue;
+    T* orow = oh + static_cast<int64_t>(row) * D + (lane % 4) * 2;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack2<T>(o[n * 4 + i * 2] * inv[i], o[n * 4 + i * 2 + 1] * inv[i]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_sm90_kernel(__grid_constant__ const CUtensorMap qmap, __grid_constant__ const CUtensorMap kmap,
+                  __grid_constant__ const CUtensorMap vmap, T* __restrict__ out, int H, int hkv,
+                  int S, float scale_log2, int causal) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  const uint32_t kv_s = q_s + C::Q_BYTES;        // stage st: K, then V
+  const uint32_t full0 = q_s + C::BAR_OFF;
+  const uint32_t empty0 = full0 + 8 * C::STAGES;
+  const uint32_t qbar = empty0 + 8 * C::STAGES;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // the heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qb * kBq;
+  const int last_row = min(q0 + kBq, S) - 1;
+  const int n_tiles = causal ? last_row / BK + 1 : (S + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < C::STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, 256);  // every consumer thread releases the stage
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int c = 0; c < C::CB; ++c)
+        tma_load_3d(q_s + c * kBq * 128, &qmap, qbar, c * 64, q0, b * H + h);
+      const int kv_row = b * hkv + h / (H / hkv);  // GQA by index
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % C::STAGES;
+        mbar_wait(empty0 + 8 * st, ((t / C::STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * st;
+        mbar_expect_tx(full, 2 * C::KV_BYTES);
+        const uint32_t ks = kv_s + st * 2 * C::KV_BYTES;
+        for (int c = 0; c < C::CB; ++c) {
+          tma_load_3d(ks + c * BK * 128, &kmap, full, c * 64, t * BK, kv_row);
+          tma_load_3d(ks + C::KV_BYTES + c * BK * 128, &vmap, full, c * 64, t * BK, kv_row);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    consume<T, D>(q_s, kv_s, full0, empty0, qbar, out, H, S, b, h, q0, n_tiles, wg - 1,
+                  scale_log2, causal);
+  }
+}
+
+// ---- host ------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API symbol: fetched through the
+// runtime, so the library needs no -lcuda.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [heads, S, D] view of a [B, heads, S, D] tensor, boxes of 64 x rows x 1.
+template <typename T>
+CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads, int S, int D, int rows) {
+  const CUtensorMapDataType ty = std::is_same_v<T, __nv_bfloat16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, ty, 3, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int hkv, int S,
+           float scale, int causal, cudaStream_t stream) {
+  using C = Cfg<D>;
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return kEncodeFailed + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  CUtensorMap qm, km, vm;
+  CUresult r = encode<T>(fn, &qm, q, B * H, S, D, kBq);
+  if (r == CUDA_SUCCESS) r = encode<T>(fn, &km, k, B * hkv, S, D, C::BK);
+  if (r == CUDA_SUCCESS) r = encode<T>(fn, &vm, v, B * hkv, S, D, C::BK);
+  if (r != CUDA_SUCCESS) return kEncodeFailed + static_cast<int>(r);
+  static bool opted_in = false;  // per instantiation
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_sm90_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const dim3 grid((S + kBq - 1) / kBq, H, B);
+  flash_sm90_kernel<T, D><<<grid, kThreads, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<T*>(out), H, hkv, S, scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v, void* out, int B, int H, int hkv, int S,
+             int D, float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch<T, 64>(q, k, v, out, B, H, hkv, S, scale, causal, s);
+    case 128: return launch<T, 128>(q, k, v, out, B, H, hkv, S, scale, causal, s);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, hkv, S, scale, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dtype: 1 bfloat16, 2 float16 (q, k, v and out share it); D 64, 128 or
+// 256; every pointer 16-byte aligned.
+extern "C" int flash_attention_sm90_launch(int dtype, const void* q, const void* k, const void* v,
+                                           void* out, int B, int H, int hkv, int S, int D,
+                                           float scale, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0) return 0;
+  if (hkv <= 0 || H % hkv || B > 65535 || H > 65535 ||
+      static_cast<int64_t>(B) * H >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1: return launch_d<__nv_bfloat16>(q, k, v, out, B, H, hkv, S, D, scale, causal, s);
+    case 2: return launch_d<__half>(q, k, v, out, B, H, hkv, S, D, scale, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

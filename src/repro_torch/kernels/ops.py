@@ -11,7 +11,9 @@ where its tensors lie:
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain integers; a call on
 the CPU is not a launch), so a run can show that its main path went
-through the kernels.
+through the kernels; one call of a wrapper that launches two kernels
+(``paged_attention``: split, then combine) counts once.  ``FLASH_ROUTES``
+tallies the ``flash_attention`` launches by route (:func:`_flash_route`).
 
 The kernels are built from ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` at
 first use — one ``nvcc`` per source, all started together, then one link —
@@ -56,14 +58,16 @@ _LPM_ROWS = 1 << 20  # translate keys are log2 * 2^20 + row
 
 LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
             "paged_attention": 0, "msi_transition": 0, "flash_attention": 0}
+FLASH_ROUTES = {"wgmma": 0, "simt": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, FLASH_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------- #
@@ -134,17 +138,23 @@ def _declare(lib) -> None:
     lib.rm_translate.argtypes = [p, i, p, i, p, p, p]
     lib.rm_protect.argtypes = [p, p, p, i, p, i, p, p]
     lib.lane_replay_launch.argtypes = [i] * 9 + [p] * 15  # 14 tensors + stream
-    # dtype, 6 tensors, B P page Hkv G D maxp, scale, stream
-    lib.paged_attention_launch.argtypes = ([i] + [p] * 6 + [i] * 7
-                                           + [ctypes.c_float, p])
+    # dtype, q k v tables lens ws, B P page Hkv G D maxp splits pps vec,
+    # scale, stream
+    lib.paged_attention_split_launch.argtypes = ([i] + [p] * 6 + [i] * 10
+                                                 + [ctypes.c_float, p])
+    # dtype, ws, out, B Hq D splits, stream
+    lib.paged_attention_combine_launch.argtypes = [i, p, p, i, i, i, i, p]
     # 7 inputs (table last), S, B, 5 outputs, stream
     lib.msi_transition_launch.argtypes = [p] * 7 + [i, i] + [p] * 6
     # dtype, q k v out, B H Hkv S D, scale, causal, stream
     lib.flash_attention_launch.argtypes = ([i] + [p] * 4 + [i] * 5
                                            + [ctypes.c_float, i, p])
+    lib.flash_attention_sm90_launch.argtypes = (
+        lib.flash_attention_launch.argtypes)
     for f in (lib.rm_translate, lib.rm_protect, lib.lane_replay_launch,
-              lib.paged_attention_launch, lib.msi_transition_launch,
-              lib.flash_attention_launch):
+              lib.paged_attention_split_launch,
+              lib.paged_attention_combine_launch, lib.msi_transition_launch,
+              lib.flash_attention_launch, lib.flash_attention_sm90_launch):
         f.restype = i
 
 
@@ -159,7 +169,13 @@ def load_library():
     return _lib
 
 
+_ENCODE_FAILED = 100000  # csrc/flash_attention_sm90.cu: + the CUresult
+
+
 def _check(err: int, name: str) -> None:
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - _ENCODE_FAILED}")
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
@@ -320,16 +336,22 @@ def lane_replay(nwaves, dkc, slot, blade, write, valid, ptype, w0, rw, bit,
 # Decode attention over the paged KV pool.
 # --------------------------------------------------------------------- #
 _PA_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_PA_KEYS = 32  # keys per chunk in csrc/paged_attention.cu (kKeys)
 _PA_MAX_D = 256
-_MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+_PA_HEADS = 8  # query heads of one split CTA (kGMax in csrc/paged_attention.cu)
+_PA_MAX_PPS = 1024  # pages of one split (kMaxPps there)
 
 
-def _paged_attention_smem(g: int, d: int) -> int:
-    """Shared memory (bytes) of one block of the paged-attention kernel:
-    q and acc ``[G, D]``, a K and a V chunk ``[32, D]``, the probabilities
-    ``[G, 32]`` and three ``[G]`` vectors, all fp32."""
-    return 4 * (2 * g * d + 2 * _PA_KEYS * d + g * _PA_KEYS + 3 * g)
+def _paged_splits(b: int, ctas: int, maxp: int, sms: int) -> tuple[int, int]:
+    """``(splits, pages per split)`` of the split kernel, from shapes only
+    (never ``seq_lens``, which would cost a device-to-host sync per layer):
+    enough splits that ``b * ctas * splits`` CTAs give about two per SM,
+    at most one per block-table page, at most ``_PA_MAX_PPS`` pages a
+    split, and no split wholly past the table.  Split ``i`` takes pages
+    ``[i*pps, (i+1)*pps)``."""
+    maxp = max(maxp, 1)
+    want = max(1, -(-2 * sms // max(b * ctas, 1)), -(-maxp // _PA_MAX_PPS))
+    pps = -(-maxp // min(want, maxp))
+    return -(-maxp // pps), pps
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -379,27 +401,38 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"seq_lens {tuple(seq_lens.shape)} must have B={b} "
                          f"rows")
     maxp = block_tables.shape[1]
-    for n, name in ((p * page, "P*page"), (maxp, "maxp")):
+    for n, name in ((p * page, "P*page"), (maxp * page, "maxp*page")):
         _int32_range(n, name)
-    if b > 65535:
-        raise ValueError(f"B={b} exceeds the kernel's grid (65535)")
+    if b > 65535 or hkv * -(-g // _PA_HEADS) > 65535:
+        raise ValueError(f"B={b}, Hkv={hkv}, G={g} exceed the kernel's grid "
+                         f"(65535)")
     eff_scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if dev.type != "cuda":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      seq_lens, eff_scale)
-    smem = _paged_attention_smem(g, d)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"G={g}, D={d} needs {smem} bytes of shared memory "
-                         f"per block; the card has {_MAX_SMEM}")
     lib = load_library()
     out = torch.empty_like(q)
     if b and g:
+        splits, pps = _paged_splits(
+            b, hkv * -(-g // _PA_HEADS), maxp,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        # fp32 partials (m, l, acc) of every (sequence, head, split).
+        ws = torch.empty((b, hkv * g, splits, d + 2), dtype=torch.float32,
+                         device=dev)
+        vec = int(d * q.element_size() % 16 == 0
+                  and k_pages.data_ptr() % 16 == 0
+                  and v_pages.data_ptr() % 16 == 0)
         with torch.cuda.device(dev):
-            _check(lib.paged_attention_launch(
+            _check(lib.paged_attention_split_launch(
                 _PA_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
                 v_pages.data_ptr(), block_tables.data_ptr(),
-                seq_lens.data_ptr(), out.data_ptr(), b, p, page, hkv, g, d,
-                maxp, eff_scale, _stream(dev)), "paged_attention")
+                seq_lens.data_ptr(), ws.data_ptr(), b, p, page, hkv, g, d,
+                maxp, splits, pps, vec, eff_scale, _stream(dev)),
+                "paged_attention (split)")
+            _check(lib.paged_attention_combine_launch(
+                _PA_DTYPES[q.dtype], ws.data_ptr(), out.data_ptr(), b,
+                hkv * g, d, splits, _stream(dev)),
+                "paged_attention (combine)")
         LAUNCHES["paged_attention"] += 1
     return out
 
@@ -473,6 +506,19 @@ def msi_transition_vectorized(state: torch.Tensor, sharers: torch.Tensor,
 # --------------------------------------------------------------------- #
 # Blocked (flash) attention.
 # --------------------------------------------------------------------- #
+_WGMMA_D = (64, 128, 256)
+
+
+def _flash_route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+    """Which kernel computes ``flash_attention`` on the card: ``"wgmma"``
+    (``csrc/flash_attention_sm90.cu``, tensor cores, TMA loads) for
+    bf16/fp16 at D 64, 128 or 256 with 16-byte aligned tensors (TMA's
+    rule), else ``"simt"`` (``csrc/flash_attention.cu``, fp32 FMAs)."""
+    if dtype in (torch.bfloat16, torch.float16) and d in _WGMMA_D and aligned:
+        return "wgmma"
+    return "simt"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     block_q: int = 128, block_k: int = 128):
@@ -509,6 +555,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"S={s} does not divide by the blocks ({bq}, {bk})")
     if b > 65535 or h > 65535:
         raise ValueError(f"B={b}, H={h} exceed the kernel's grid (65535)")
+    _int32_range(b * h, "B*H")
     eff_scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if dev.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, scale=eff_scale,
@@ -516,18 +563,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = load_library()
     out = torch.empty_like(q)
     if b and h:
+        route = _flash_route(q.dtype, d, all(
+            t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+        launch = (lib.flash_attention_sm90_launch if route == "wgmma"
+                  else lib.flash_attention_launch)
         with torch.cuda.device(dev):
-            _check(lib.flash_attention_launch(
+            _check(launch(
                 _PA_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), b, h, hkv, s, d, eff_scale,
-                int(bool(causal)), _stream(dev)), "flash_attention")
+                int(bool(causal)), _stream(dev)), f"flash_attention ({route})")
         LAUNCHES["flash_attention"] += 1
+        FLASH_ROUTES[route] += 1
     return out
 
 
 __all__ = [
-    "LAUNCHES", "NO_MATCH", "build_library", "build_transition_table",
-    "flash_attention", "lane_replay", "load_library", "msi_transition",
-    "msi_transition_vectorized", "paged_attention", "protect_check",
-    "reset_launches", "translate_lookup",
+    "FLASH_ROUTES", "LAUNCHES", "NO_MATCH", "build_library",
+    "build_transition_table", "flash_attention", "lane_replay",
+    "load_library", "msi_transition", "msi_transition_vectorized",
+    "paged_attention", "protect_check", "reset_launches", "translate_lookup",
 ]

@@ -156,6 +156,15 @@ PAGED = {
     "gemma-2b": dict(b=4, hq=8, hkv=1, d=256, page=16, maxp=6),
     "g1-d256": dict(b=2, hq=2, hkv=2, d=256, page=8, maxp=3),
     "page-48": dict(b=2, hq=6, hkv=2, d=64, page=48, maxp=3),
+    # short sequences beside a long one: most splits lie past the short
+    "mixed-lens": dict(b=4, hq=32, hkv=8, d=128, page=16, maxp=40,
+                       lens=[1, 16, 17, 563]),
+    # B * Hkv >= 2 * 132: one split a sequence
+    "one-split": dict(b=33, hq=32, hkv=8, d=128, page=16, maxp=4),
+    # G 16: two CTAs of 8 query heads per KV head
+    "g16": dict(b=2, hq=32, hkv=2, d=64, page=16, maxp=4),
+    # a 72-byte bf16/fp16 row: copied without 16-byte cp.async
+    "d36": dict(b=2, hq=4, hkv=2, d=36, page=8, maxp=3),
 }
 
 
@@ -182,7 +191,7 @@ def test_paged_attention_kernel_matches_plain(cuda, name, dtype):
 
 def test_paged_attention_raises_instead_of_falling_back(cuda, monkeypatch):
     class Broken:
-        def paged_attention_launch(self, *args):
+        def paged_attention_split_launch(self, *args):
             return 700  # cudaErrorIllegalAddress
 
     case = _paged_case(np.random.default_rng(0), b=2, hq=4, hkv=2, d=32,
@@ -196,6 +205,47 @@ def test_paged_attention_raises_instead_of_falling_back(cuda, monkeypatch):
     assert ops.LAUNCHES["paged_attention"] == before
     with pytest.raises(ValueError):  # block table left on the CPU
         ops.paged_attention(q, kp, vp, bt.cpu(), sl)
+
+
+def test_paged_attention_raises_when_the_combine_fails(cuda, monkeypatch):
+    class CombineFails:
+        def paged_attention_split_launch(self, *args):
+            return 0
+
+        def paged_attention_combine_launch(self, *args):
+            return 700  # cudaErrorIllegalAddress
+
+    case = _paged_case(np.random.default_rng(0), b=2, hq=4, hkv=2, d=32,
+                       page=8, maxp=2)
+    q, kp, vp = (to_device(a, torch.bfloat16, cuda) for a in case[:3])
+    bt, sl = (to_device(a, torch.int32, cuda) for a in case[3:])
+    monkeypatch.setattr(ops, "_lib", CombineFails())
+    before = ops.LAUNCHES["paged_attention"]
+    with pytest.raises(RuntimeError, match="combine"):
+        ops.paged_attention(q, kp, vp, bt, sl)
+    assert ops.LAUNCHES["paged_attention"] == before
+
+
+def test_paged_attention_launches_split_and_combine(cuda):
+    """One call is a split grid (splits, Hkv, B) chosen from the shapes and
+    a combine grid; the wrapper reads no seq_lens on the host, so the call
+    can be captured in a CUDA graph."""
+    case = _paged_case(np.random.default_rng(3), **PAGED["mixed-lens"])
+    q, kp, vp = (to_device(a, torch.bfloat16, cuda) for a in case[:3])
+    bt, sl = (to_device(a, torch.int32, cuda) for a in case[3:])
+    want = paged_attention_plain(q, kp, vp, bt, sl)
+    ops.paged_attention(q, kp, vp, bt, sl)  # builds and warms up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops.paged_attention(q, kp, vp, bt, sl)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ops._paged_splits(4, 8, 40, sms)[0] > 1
+    assert ops._paged_splits(33, 8, 4, 132) == (1, 4)
 
 
 def _to(tree, device):
@@ -333,6 +383,41 @@ def test_flash_attention_kernel_matches_plain(cuda, name, dtype,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+WGMMA = {
+    # (s, query heads per KV head, causal, block); B 2, 8 query heads
+    "s1": (1, 1, True, 1),
+    "s100-gqa4": (100, 4, True, 50),
+    "s192-gqa8-full": (192, 8, False, 64),
+    "s4096-gqa4": (4096, 4, True, 128),
+}
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(WGMMA))
+def test_flash_attention_wgmma_route_matches_plain(cuda, name, dtype, d):
+    s, groups, causal, blk = WGMMA[name]
+    b, h = 2, 8
+    rng = np.random.default_rng(d + s)
+    q, k, v = (to_device(rng.standard_normal(shape) * sc, dtype, cuda)
+               for shape, sc in (((b, h, s, d), 3.0),
+                                 ((b, h // groups, s, d), 1.0),
+                                 ((b, h // groups, s, d), 1.0)))
+    kw = dict(causal=causal, block_q=blk, block_k=blk)
+    assert ops._flash_route(dtype, d) == "wgmma"
+    before = dict(ops.FLASH_ROUTES)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES["wgmma"] == before["wgmma"] + 1
+    assert ops.FLASH_ROUTES["simt"] == before["simt"]
+    want = flash_attention_plain(q, k, v, scale=d ** -0.5, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    # P is rounded to the input type before P V, as the library call does:
+    # one or two ulps of outputs of order one.
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_msi_and_flash_raise_instead_of_falling_back(cuda, monkeypatch):
     class Broken:
         def msi_transition_launch(self, *args):
@@ -354,3 +439,17 @@ def test_msi_and_flash_raise_instead_of_falling_back(cuda, monkeypatch):
         ops.msi_transition(*msi[:5], msi[5].cpu())
     with pytest.raises(ValueError):  # v left on the CPU
         ops.flash_attention(q, q, q.cpu())
+
+
+def test_flash_wgmma_route_raises_when_the_tensor_map_fails(cuda,
+                                                           monkeypatch):
+    class EncodeFails:
+        def flash_attention_sm90_launch(self, *args):
+            return ops._ENCODE_FAILED + 1  # CUDA_ERROR_INVALID_VALUE
+
+    monkeypatch.setattr(ops, "_lib", EncodeFails())
+    q = torch.zeros((1, 2, 64, 128), dtype=torch.bfloat16, device=cuda)
+    before = (dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES))
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        ops.flash_attention(q, q, q)
+    assert (ops.LAUNCHES, ops.FLASH_ROUTES) == before

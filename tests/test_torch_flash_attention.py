@@ -138,3 +138,67 @@ def test_wrapper_keeps_the_block_contract():
     with pytest.raises(ValueError):  # D above 256
         z = torch.zeros((1, 1, 8, 264))
         P.flash_attention(z, z, z)
+
+
+# --------------------------------------------------------------------- #
+# The tensor-core route.
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 192, 256])
+def test_flash_route(dtype, d):
+    """bf16/fp16 at D 64/128/256 go to the wgmma kernel, everything else
+    (and any tensor TMA cannot address) to the SIMT one."""
+    want = ("wgmma" if dtype != torch.float32 and d in (64, 128, 256)
+            else "simt")
+    assert P._flash_route(dtype, d) == want
+    assert P._flash_route(dtype, d, aligned=False) == "simt"
+
+
+def bf16_p_attention(q, k, v, causal, bk):
+    """What the tensor-core kernel computes, in torch ops: fp32 logits of
+    q's-dtype inputs, key tiles of ``bk`` with an online softmax in fp32,
+    P rounded to q's dtype before P V (fp32 accumulation), l summed from
+    the fp32 probabilities."""
+    b, h, s, d = q.shape
+    rep = h // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(rep, 1)
+    vf = v.float().repeat_interleave(rep, 1)
+    scale = d ** -0.5
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        x = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2) * scale
+        if causal:
+            x = x.masked_fill(rows < torch.arange(k0, k0 + bk)[None, :],
+                              -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp(x - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(q.dtype).float() @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("heads", [(32, 8, 128, 128), (8, 1, 256, 64)],
+                         ids=["qwen3-4b", "gemma-2b"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_low_precision_p_stays_under_the_bar(heads, dtype):
+    """Rounding P to the input type, as the wgmma kernel feeds P V, stays
+    under the card's 2e-2 bar against the plain version, on chip_smoke.py's
+    draw (logits of std 3, outputs of order one) at S 512."""
+    h, hkv, d, bk = heads
+    rng = np.random.default_rng(0)
+    s = 512
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape) * sc).to(dtype)
+               for shape, sc in (((1, h, s, d), 3.0), ((1, hkv, s, d), 1.0),
+                                 ((1, hkv, s, d), 1.0)))
+    got = bf16_p_attention(q, k, v, True, bk)
+    want = flash_attention_plain(q, k, v, causal=True, scale=d ** -0.5)
+    assert float(want.float().pow(2).mean().sqrt()) > 0.1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
