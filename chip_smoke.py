@@ -10,8 +10,10 @@ exits nonzero):
 1. env      — the card's name and power limit.
 2. build    — compile src/repro_torch/kernels/csrc/*.cu for sm_90a, one
               nvcc per source, all at once; ptxas's register and spill
-              lines, and the HGMMA (wgmma) instructions of each kernel
-              counted in `cuobjdump -sass` of the library.
+              lines, each lane_replay and MSI kernel's registers, static
+              shared memory and spills (none allowed), and the HGMMA
+              (wgmma) instructions of each kernel counted in
+              `cuobjdump -sass` of the library.
 3. serve    — PagedServer serving qwen3-4b at full width (36 layers,
               d_model 2560, bf16, random weights from a seed): 16 requests
               of 500-token prompts sharing a 256-token prefix, two of them
@@ -26,7 +28,11 @@ exits nonzero):
               bytewise, on the inputs recorded from one run of the main
               cell below: translate/protect on its 1.6M vaddrs and the
               8x10 rack's tables, lane_replay on its largest chunk (and
-              every chunk timed back to back); extra cases: >= 1M
+              every chunk timed back to back, on its own route and on the
+              global one, with the wave steps they walk); the two
+              lane_replay routes (state in shared memory, state in global
+              memory) held against each other on every chunk; extra
+              cases: >= 1M
               vaddrs, a quarter unmapped, on the same tables, and a
               pressure chunk with directory-eviction packets.
               paged_attention on the serve run's widest decode call, in
@@ -47,7 +53,8 @@ exits nonzero):
               each kernel against its plain version, both timed; then
               msi_transition at MIND's directory width (30,000 slots, all
               I, 1.6M zipf(1.1) requests from 8 blades, 50% writes), held
-              bytewise to its plain version on the whole stream, and
+              bytewise to its plain version on the whole stream, its
+              hottest slot's chain (the walk's serial floor) counted, and
               msi_transition_vectorized against it on 8,192 distinct
               slots; and flash_attention at S 4,096 with the heads of
               qwen3-4b (32/8, D 128) and gemma-2b (8/1, D 256), causal
@@ -66,7 +73,10 @@ exits nonzero):
               M_A and GC at 2,000 and TF at 1,000 accesses per thread.
 7. main     — M_A at the trace's default 20,000 accesses per thread
               (1.6M accesses) on the CUDA engine alone; the replay
-              kernels' launch counts of this run are the ones reported.
+              kernels' launch counts of this run are the ones reported,
+              and its lane_replay launches must equal the chunks of the
+              run recorded in phase 4.  Phases 4, 6 and 7 report
+              ops.LANE_ROUTES, the lane_replay launches per route.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Needs one CUDA device; it refuses to run
@@ -172,13 +182,18 @@ def nvidia_smi_line() -> str:
 
 # Device cycles the card sleeps before a timed loop (~10 ms), so that the
 # host enqueues the loop ahead of the device and host dispatch between
-# launches does not count as device time.
+# launches does not count as device time.  A loop of many launches (the
+# main path's 725 stage-3 chunks, each enqueued in ~0.2 ms by the host)
+# sleeps LAUNCH_HEAD_START_CYCLES per launch.
 HEAD_START_CYCLES = 20_000_000
+LAUNCH_HEAD_START_CYCLES = 1_000_000
 
 
-def time_ms(fn, reps: int, device, warm: bool = True) -> float:
+def time_ms(fn, reps: int, device, warm: bool = True,
+            head_start: int = HEAD_START_CYCLES) -> float:
     """Mean device time of ``fn()`` per call: CUDA events on the card (the
-    loop enqueued behind a device sleep), the host clock elsewhere (CPU
+    loop enqueued behind a device sleep of ``head_start`` cycles, longer
+    than the host takes to enqueue it), the host clock elsewhere (CPU
     rehearsals).  ``warm=False`` skips the warm-up call, for a function
     that has just run on these inputs."""
     import torch
@@ -187,7 +202,7 @@ def time_ms(fn, reps: int, device, warm: bool = True) -> float:
         fn()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-        torch.cuda._sleep(HEAD_START_CYCLES)
+        torch.cuda._sleep(head_start)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -249,6 +264,38 @@ def sass_hgmma(lib) -> dict:
         elif fn and "HGMMA" in ln:
             counts[fn] = counts.get(fn, 0) + 1
     return counts
+
+
+# Sources whose kernels must compile without register spills.
+NO_SPILL_SOURCES = ("lane_replay", "directory_msi")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """``{kernel: {registers, smem, spill_stores, spill_loads}}`` from one
+    source's ``nvcc -Xptxas -v`` output (static shared memory; the
+    dynamic part of lane_replay is ``ops.lane_smem_bytes``)."""
+    import re
+
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict(registers=None, smem=0, spill_stores=0,
+                           spill_loads=0)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[fn]["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def bound_ms(nbytes: float, nops: float, ops_s: float = ALU_OPS_S):
@@ -331,6 +378,23 @@ def lane_bound(args):
     return nbytes, g * steps * nb2 * span * 3
 
 
+def lane_steps(args) -> int:
+    """Wave steps one stage-3 launch walks in each lane."""
+    return min(int(args[0]), args[2].shape[1])
+
+
+def lane_route(args, device) -> str:
+    """The route ``ops.lane_replay`` takes for these inputs on the card
+    (``"plain"`` off it)."""
+    from repro_torch.kernels import ops
+
+    if device.type != "cuda":
+        return "plain"
+    return ops._lane_route(args[11].shape[1], args[11].shape[2],
+                           args[12].shape[1] // 2, args[12].shape[2],
+                           ops._lane_smem_limit(device))
+
+
 def phase_kernels(device, scale: float = 1.0):
     """Phase 3: each kernel against its plain version, bytewise, on the
     inputs the main path gives it (recorded from one run of the main
@@ -402,42 +466,73 @@ def phase_kernels(device, scale: float = 1.0):
 
     # ---- stage 3: the main path's largest chunk, then all of its chunks -
     lanes = calls["lane_replay"]
-    args = max(lanes, key=lambda a: (min(int(a[0]), a[2].shape[1]),
-                                     a[2].shape[0]))
+    args = max(lanes, key=lambda a: (lane_steps(a), a[2].shape[0]))
     err = exact("lane_replay (main-path chunk)", ops.lane_replay(*args),
                 lane_replay_plain(*args))
+    # The two routes against each other on every chunk of the main path
+    # (the plain version is affordable on the largest chunk alone).
+    routes_held = 0
+    for k, a in enumerate(lanes):
+        if lane_route(a, device) != "global":
+            exact(f"lane_replay chunk {k}: smem vs global route",
+                  ops.lane_replay(*a, _route="smem"),
+                  ops.lane_replay(*a, _route="global"))
+            routes_held += 1
+    if routes_held != len(lanes):
+        raise AssertionError(f"only {routes_held} of {len(lanes)} main-path "
+                             f"chunks fit the shared-memory route")
     nbytes, nops = lane_bound(args)
     nbytes_all = sum(lane_bound(a)[0] for a in lanes)
     nops_all = sum(lane_bound(a)[1] for a in lanes)
+    steps = sum(lane_steps(a) for a in lanes)
     g, L = args[2].shape
+    loop_head = max(HEAD_START_CYCLES, LAUNCH_HEAD_START_CYCLES * len(lanes))
+    main_ms = time_ms(lambda: [ops.lane_replay(*a) for a in lanes], 1, device,
+                      head_start=loop_head)
     rows["lane_replay"] = dict(
         max_abs_err=err,
-        shape=dict(lanes=g, L=L, waves=min(int(args[0]), L),
+        shape=dict(lanes=g, L=L, waves=lane_steps(args),
                    S=args[11].shape[1], span=args[11].shape[2],
-                   planes=list(args[12].shape[1:])),
+                   planes=list(args[12].shape[1:]),
+                   route=lane_route(args, device),
+                   smem_bytes=ops.lane_smem_bytes(
+                       args[11].shape[1], args[11].shape[2],
+                       args[12].shape[1] // 2, args[12].shape[2])),
         ms=time_ms(lambda: ops.lane_replay(*args), 5, device),
+        global_ms=time_ms(lambda: ops.lane_replay(*args, _route="global"), 5,
+                          device),
         plain_ms=time_ms(lambda: lane_replay_plain(*args), 1, device,
                          warm=False),
         bound=bound_ms(nbytes, nops),
-        # Every launch of the main path, replayed back to back.
+        # Every launch of the main path, replayed back to back: its serial
+        # floor is the wave steps, one after the other in each launch.
         main_path=dict(
-            launches=len(lanes),
-            ms=time_ms(lambda: [ops.lane_replay(*a) for a in lanes], 1,
-                       device),
-            bound_ms=bound_ms(nbytes_all, nops_all)[0]))
+            launches=len(lanes), wave_steps=steps,
+            lane_steps=sum(lane_steps(a) * a[2].shape[0] for a in lanes),
+            ms=main_ms, ns_per_wave_step=main_ms * 1e6 / steps,
+            global_ms=time_ms(lambda: [ops.lane_replay(*a, _route="global")
+                                       for a in lanes], 1, device,
+                              head_start=loop_head),
+            routes_held_equal=routes_held,
+            bound_ms=bound_ms(nbytes_all, nops_all)[0]),
+        serial_steps=steps, ns_per_step=main_ms * 1e6 / steps)
 
     # ---- extra: a pressure chunk with directory-eviction packets --------
     rack, trace = make_rack("TF", max(20, int(200 * scale)), device,
                             max_directory_entries=3000,
                             engine_options={"chunk_size": 2048})
+    before = dict(ops.LANE_ROUTES)
     ev = [a for a in record_calls(lambda: rack.run(trace))["lane_replay"]
           if bool((a[6] == 1).any())]
+    routes = {r: ops.LANE_ROUTES[r] - before[r] for r in before}
     if not ev:
         raise AssertionError("the pressure run sent no eviction packet")
     err = exact("lane_replay (pressure chunk)", ops.lane_replay(*ev[0]),
                 lane_replay_plain(*ev[0]))
     rows["pressure_lane"] = dict(max_abs_err=err,
-                                 eviction_packets=int((ev[0][6] == 1).sum()))
+                                 eviction_packets=int((ev[0][6] == 1).sum()),
+                                 route=lane_route(ev[0], device),
+                                 run_lane_routes=routes)
     rows["lane_replay"]["max_abs_err"] = max(rows["lane_replay"]["max_abs_err"],
                                              err)
     return rows
@@ -882,7 +977,9 @@ def phase_kernel_bench(device, scale: float = 1.0):
     stream = dev(*msi_stream(rng, b, s))
     args = (*directory, *stream)
     got = ops.msi_transition(*args)
-    ms = time_ms(lambda: ops.msi_transition(*args), 3, device)
+    ms = time_ms(lambda: ops.msi_transition(*args), 5, device)
+    # The serial floor: the hottest slot's chain of requests.
+    hot = int(torch.bincount(stream[0].long().clamp(0, s - 1)).max())
     t = time.perf_counter()
     want = msi_transition_plain(*args)
     plain_s = time.perf_counter() - t
@@ -905,6 +1002,7 @@ def phase_kernel_bench(device, scale: float = 1.0):
         final_states_ISM=state_counts,
         fetch_from_owner=int((got[3] >= 0).sum()),
         ms=ms, plain_ms=plain_s * 1e3,
+        serial_steps=hot, ns_per_step=ms * 1e6 / hot,
         bytes=nbytes, bound=bound,
         distinct=dict(B=m, max_abs_err=vec_err,
                       kernel_ms=time_ms(lambda: ops.msi_transition(*vec), 10,
@@ -1037,6 +1135,7 @@ def phase_parity(device, scale: float = 1.0):
         rb = rack_b.run(trace)
         tb = time.perf_counter() - t
         launches = {k: ops.LAUNCHES[k] for k in REPLAY_KERNELS}
+        lane_routes = dict(ops.LANE_ROUTES)
         t = time.perf_counter()
         rack_s = DisaggregatedRack(system="mind", engine="scalar", **RACK)
         rs = rack_s.run(trace)
@@ -1068,7 +1167,8 @@ def phase_parity(device, scale: float = 1.0):
                         directory_capacity_evictions=sram[0][0],
                         directory_peak_entries=sram[0][1],
                         runtime_us=rb.runtime_us, cuda_s=tb, scalar_s=ts,
-                        phase_times=rb.phase_times, launches=launches))
+                        phase_times=rb.phase_times, launches=launches,
+                        lane_routes=lane_routes))
     return out
 
 
@@ -1090,6 +1190,7 @@ def phase_main(device, scale: float = 1.0):
                           **RACK).run(trace)
     wall = time.perf_counter() - t
     launches = {k: ops.LAUNCHES[k] for k in REPLAY_KERNELS}
+    lane_routes = dict(ops.LANE_ROUTES)
     if r.stats.accesses != len(trace):
         raise AssertionError(f"{r.stats.accesses} accesses replayed of "
                              f"{len(trace)}")
@@ -1102,7 +1203,8 @@ def phase_main(device, scale: float = 1.0):
                 accesses_per_s=len(trace) / wall, epochs=len(r.epoch_reports),
                 runtime_us=r.runtime_us,
                 stats={f: getattr(r.stats, f) for f in STAT_FIELDS},
-                phase_times=r.phase_times, launches=launches)
+                phase_times=r.phase_times, launches=launches,
+                lane_routes=lane_routes)
 
 
 def main() -> int:
@@ -1139,13 +1241,20 @@ def main() -> int:
                      if "registers" in ln or "spill" in ln]
             for p in sorted(ops.BUILD_DIR.glob("*.log"))}
     build_s = time.perf_counter() - t
+    resources = {src: ptxas_kernels((ops.BUILD_DIR / f"{src}.log").read_text())
+                 for src in NO_SPILL_SOURCES}
+    spills = [k for r in resources.values() for k, v in r.items()
+              if v["spill_stores"] or v["spill_loads"]]
+    if spills or not all(resources.values()):
+        raise AssertionError(f"register spills or no ptxas report: {spills}, "
+                             f"{resources}")
     hgmma = sass_hgmma(lib)
     if not any("flash_sm90_kernel" in k for k in hgmma):
         raise AssertionError(f"no HGMMA in the tensor-core flash kernel: "
                              f"{hgmma}")
     emit({"phase": "build", "seconds": build_s,
           "library": str(lib.relative_to(ROOT)), "ptxas": logs,
-          "hgmma": hgmma})
+          "resources": resources, "hgmma": hgmma})
 
     serve, recorded = phase_serve(device)
     emit({"phase": "serve", **serve})
@@ -1178,6 +1287,11 @@ def main() -> int:
     emit({"phase": "parity", "cells": phase_parity(device)})
     main_run = phase_main(device)
     emit({"phase": "main", **main_run})
+    chunks = kern["lane_replay"]["main_path"]["launches"]
+    if main_run["launches"]["lane_replay"] != chunks:
+        raise AssertionError(f"the main run launched lane_replay "
+                             f"{main_run['launches']['lane_replay']} times, "
+                             f"its recorded run had {chunks} chunks")
 
     launches = {**main_run["launches"], **bench_launches,
                 "paged_attention": serve["launches"]["paged_attention"]}
@@ -1192,7 +1306,10 @@ def main() -> int:
                           library_ms=k.get("library_ms"),
                           share_of_bound=b / k["ms"],
                           held_equal=k["max_abs_err"] == 0,
-                          tolerance=k.get("tolerance", 0), shape=k["shape"]))
+                          tolerance=k.get("tolerance", 0), shape=k["shape"],
+                          **{key: k[key] for key in ("serial_steps",
+                                                     "ns_per_step")
+                             if key in k}))
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,8 +12,10 @@ hand-written CUDA kernel ``csrc/directory_msi.cu`` (launched by
 :func:`repro_torch.kernels.ops.msi_transition`).  This module holds the
 port's copy of the action codes and of :func:`build_transition_table`, the
 kernel's plain version :func:`msi_transition_plain` (the packet-order loop,
-on the host), and :func:`msi_transition_vectorized`, the reference's
-conflict-free variant, which is plain tensor code there too.
+on the host), :func:`msi_transition_grouped_plain` (the kernel's algorithm:
+requests grouped by slot, each slot's chain walked in order), and
+:func:`msi_transition_vectorized`, the reference's conflict-free variant,
+which is plain tensor code there too.
 
 Directory layout:
     state:   int32 [S]  (0=I, 1=S, 2=M)
@@ -102,6 +104,27 @@ def _index(i: int, n: int) -> int:
     return min(max(i, 0), n - 1)
 
 
+def _transition(tbl, st, sh, ow, req, w):
+    """One request on one directory entry: the new ``(state, sharers,
+    owner)`` and the request's ``(fetch_src, inval_mask)``."""
+    me = _shl1(req)
+    # MAU stage 2: the materialized transition table.
+    is_ow = int(ow == req)
+    in_sh = _sar(sh, req) & 1
+    idx = _index(_wrap(((st * 2 + w) * 2 + is_ow) * 2 + in_sh), TABLE_ROWS)
+    new_state, fetch_kind, inval_kind, sh_code, ow_code = tbl[idx]
+    fetch = (-1 if fetch_kind == FETCH_LOCAL
+             else -2 if fetch_kind == FETCH_MEM else ow)
+    inval = (sh & ~me if inval_kind == INV_OTHERS
+             else _shl1(ow) if inval_kind == INV_OWNER else 0)
+    # Write-back (the recirculation).
+    new_sh = (me if sh_code == SH_SET_ME
+              else sh | me if sh_code == SH_OR_ME else sh)
+    new_ow = (req if ow_code == OW_SET_REQ
+              else -1 if ow_code == OW_CLEAR else ow)
+    return new_state, new_sh, new_ow, fetch, inval
+
+
 def msi_transition_plain(state, sharers, owner, slots, requesters, is_write):
     """Sequential (packet-order) MSI over one request batch: the loop of
     the reference's ``_msi_kernel``, one request at a time, on the host.
@@ -118,30 +141,46 @@ def msi_transition_plain(state, sharers, owner, slots, requesters, is_write):
     for slot, req, w in zip(slots.tolist(), requesters.tolist(),
                             is_write.tolist()):
         slot = _index(slot, n)
-        me = _shl1(req)
         # MAU stage 1: directory lookup.
-        st, sh, ow = st_a[slot], sh_a[slot], ow_a[slot]
-        # MAU stage 2: the materialized transition table.
-        is_ow = int(ow == req)
-        in_sh = _sar(sh, req) & 1
-        idx = _index(_wrap(((st * 2 + w) * 2 + is_ow) * 2 + in_sh),
-                     TABLE_ROWS)
-        new_state, fetch_kind, inval_kind, sh_code, ow_code = tbl[idx]
-        fetch.append(-1 if fetch_kind == FETCH_LOCAL
-                     else -2 if fetch_kind == FETCH_MEM else ow)
-        inval.append(sh & ~me if inval_kind == INV_OTHERS
-                     else _shl1(ow) if inval_kind == INV_OWNER else 0)
-        # Write-back (the recirculation).
-        st_a[slot] = new_state
-        sh_a[slot] = (me if sh_code == SH_SET_ME
-                      else sh | me if sh_code == SH_OR_ME else sh)
-        ow_a[slot] = (req if ow_code == OW_SET_REQ
-                      else -1 if ow_code == OW_CLEAR else ow)
+        st_a[slot], sh_a[slot], ow_a[slot], f, v = _transition(
+            tbl, st_a[slot], sh_a[slot], ow_a[slot], req, w)
+        fetch.append(f)
+        inval.append(v)
+    return tuple(_out(a, dev) for a in (st_a, sh_a, ow_a, fetch, inval))
 
-    def out(a):
-        return torch.tensor(a, dtype=torch.int32, device=dev)
 
-    return out(st_a), out(sh_a), out(ow_a), out(fetch), out(inval)
+def msi_transition_grouped_plain(state, sharers, owner, slots, requesters,
+                                 is_write):
+    """Plain model of the CUDA kernel's algorithm (on no path; the CPU tests
+    hold it to the reference): a request reads and writes only its own
+    slot's entry, so the batch is grouped by the clamped slot with a stable
+    sort, and each slot's chain is walked in batch order with the entry
+    held aside, written back once at the end of the chain.  Arguments and
+    results as :func:`msi_transition_plain`."""
+    dev = state.device
+    st_a, sh_a, ow_a = state.tolist(), sharers.tolist(), owner.tolist()
+    tbl = build_transition_table().tolist()
+    keys = _index_t(slots, len(st_a))
+    order = torch.sort(keys, stable=True).indices
+    keys, order = keys[order].tolist(), order.tolist()
+    req, w = requesters.tolist(), is_write.tolist()
+    b = len(order)
+    fetch, inval = [0] * b, [0] * b
+    j = 0
+    while j < b:
+        slot = keys[j]
+        entry = st_a[slot], sh_a[slot], ow_a[slot]
+        while j < b and keys[j] == slot:
+            i = order[j]
+            *entry, fetch[i], inval[i] = _transition(tbl, *entry, req[i],
+                                                     w[i])
+            j += 1
+        st_a[slot], sh_a[slot], ow_a[slot] = entry
+    return tuple(_out(a, dev) for a in (st_a, sh_a, ow_a, fetch, inval))
+
+
+def _out(a, dev):
+    return torch.tensor(a, dtype=torch.int32, device=dev)
 
 
 # --------------------------------------------------------------------- #

@@ -11,9 +11,11 @@ where its tensors lie:
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain integers; a call on
 the CPU is not a launch), so a run can show that its main path went
-through the kernels; one call of a wrapper that launches two kernels
-(``paged_attention``: split, then combine) counts once.  ``FLASH_ROUTES``
-tallies the ``flash_attention`` launches by route (:func:`_flash_route`).
+through the kernels; one call of a wrapper that launches several kernels
+(``paged_attention``: split, then combine; ``msi_transition``: the
+grouping passes, then the walk) counts once.  ``FLASH_ROUTES`` tallies
+the ``flash_attention`` launches by route (:func:`_flash_route`),
+``LANE_ROUTES`` the ``lane_replay`` launches (:func:`_lane_route`).
 
 The kernels are built from ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` at
 first use — one ``nvcc`` per source, all started together, then one link —
@@ -59,13 +61,14 @@ _LPM_ROWS = 1 << 20  # translate keys are log2 * 2^20 + row
 LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
             "paged_attention": 0, "msi_transition": 0, "flash_attention": 0}
 FLASH_ROUTES = {"wgmma": 0, "simt": 0}
+LANE_ROUTES = {"smem": 0, "global": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES):
+    for counts in (LAUNCHES, FLASH_ROUTES, LANE_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -137,21 +140,27 @@ def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rm_translate.argtypes = [p, i, p, i, p, p, p]
     lib.rm_protect.argtypes = [p, p, p, i, p, i, p, p]
-    lib.lane_replay_launch.argtypes = [i] * 9 + [p] * 15  # 14 tensors + stream
+    # G L S span NB W nsteps dkc route, 8 streams, dirrows cmask planes in,
+    # dirrows planes out, w1 w2 w3, stream
+    lib.lane_replay_launch.argtypes = [i] * 9 + [p] * 17
+    lib.lane_replay_smem_optin.argtypes = [p]
     # dtype, q k v tables lens ws, B P page Hkv G D maxp splits pps vec,
     # scale, stream
     lib.paged_attention_split_launch.argtypes = ([i] + [p] * 6 + [i] * 10
                                                  + [ctypes.c_float, p])
     # dtype, ws, out, B Hq D splits, stream
     lib.paged_attention_combine_launch.argtypes = [i, p, p, i, i, i, i, p]
-    # 7 inputs (table last), S, B, 5 outputs, stream
-    lib.msi_transition_launch.argtypes = [p] * 7 + [i, i] + [p] * 6
+    # 7 inputs (table last), S, B, 5 outputs, workspace and its bytes,
+    # stream
+    lib.msi_transition_launch.argtypes = ([p] * 7 + [i, i] + [p] * 6
+                                          + [ctypes.c_longlong, p])
     # dtype, q k v out, B H Hkv S D, scale, causal, stream
     lib.flash_attention_launch.argtypes = ([i] + [p] * 4 + [i] * 5
                                            + [ctypes.c_float, i, p])
     lib.flash_attention_sm90_launch.argtypes = (
         lib.flash_attention_launch.argtypes)
     for f in (lib.rm_translate, lib.rm_protect, lib.lane_replay_launch,
+              lib.lane_replay_smem_optin,
               lib.paged_attention_split_launch,
               lib.paged_attention_combine_launch, lib.msi_transition_launch,
               lib.flash_attention_launch, lib.flash_attention_sm90_launch):
@@ -267,21 +276,52 @@ def protect_check(pdids: torch.Tensor, vaddrs: torch.Tensor,
 # Stage 3: the MSI directory + blade-cache wave loop.
 # --------------------------------------------------------------------- #
 _STREAMS = ("slot", "blade", "write", "valid", "ptype", "w0", "rw", "bit")
+# What csrc/lane_replay.cu keeps in shared memory before the state
+# (kFixedInts): the ring (12 decoded words and 2 output words for each of a
+# tile's 32 wave steps), the 2,048-word transition table and the lanes'
+# partial window sums (3 x 32 x 33).
+_LANE_FIXED_INTS = (12 + 2) * 32 + 2048 + 3 * 32 * 33
+_LANE_ROUTE_IDS = {"smem": 0, "global": 1}
+_smem_optin: dict = {}
 
 
-def _lane_threads(nb: int, span: int) -> int:
-    """Threads per block of the wave-loop kernel: enough to cover the
-    ``[2*NB, span]`` plane window once, in whole warps, at most 256."""
-    return min(256, max(32, (2 * nb * span + 31) // 32 * 32))
+def lane_smem_bytes(S: int, span: int, NB: int, W: int) -> int:
+    """Dynamic shared memory of one lane on the ``"smem"`` route: the ring,
+    the transition table and the partial sums, then the lane's ``dirrows
+    [S, 4]``, ``cmask [S, span]`` and ``planes [2*NB, W]``, all int32."""
+    return 4 * (_LANE_FIXED_INTS + 4 * S + S * span + 2 * NB * W)
+
+
+def _lane_route(S: int, span: int, NB: int, W: int, smem_limit: int) -> str:
+    """Where ``lane_replay`` keeps a lane's state, from the shapes alone:
+    ``"smem"`` when it fits in the block's opt-in shared memory
+    (``smem_limit`` bytes), else ``"global"``."""
+    fits = lane_smem_bytes(S, span, NB, W) <= smem_limit
+    return "smem" if fits else "global"
+
+
+def _lane_smem_limit(dev: torch.device) -> int:
+    """The card's opt-in shared memory per block, read once per device."""
+    if dev not in _smem_optin:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _check(load_library().lane_replay_smem_optin(ctypes.byref(out)),
+                   "lane_replay (shared-memory limit)")
+        _smem_optin[dev] = out.value
+    return _smem_optin[dev]
 
 
 def lane_replay(nwaves, dkc, slot, blade, write, valid, ptype, w0, rw, bit,
-                dirrows, cmask, planes):
+                dirrows, cmask, planes, *, _route: str | None = None):
     """Replay each lane's waves (the counterpart of the JAX package's
     ``_replay``).  Streams are int32 ``[g, L]`` (``valid`` bool),
     ``dirrows`` int32 ``[g, S, 4]``, ``cmask`` int32 ``[g, S, span]``,
     ``planes`` int32 ``[g, 2*NB, W]``.  Returns new ``(dirrows, planes,
-    w1, w2, w3)``; the inputs are left as they are."""
+    w1, w2, w3)``; the inputs are left as they are.
+
+    On the card the route comes from :func:`_lane_route`; ``_route``
+    (``"smem"`` or ``"global"``) forces one, for tests that hold the two
+    against each other.  A forced ``"smem"`` that does not fit raises."""
     streams = dict(zip(_STREAMS, (slot, blade, write, valid, ptype, w0, rw,
                                   bit)))
     dev = slot.device
@@ -308,27 +348,39 @@ def lane_replay(nwaves, dkc, slot, blade, write, valid, ptype, w0, rw, bit,
     for n, name in ((g * L, "g*L"), (g * S * span, "g*S*span"),
                     (g * nb2 * W, "g*2NB*W")):
         _int32_range(n, name)
+    if _route is not None and _route not in _LANE_ROUTE_IDS:
+        raise ValueError(f"_route must be one of {sorted(_LANE_ROUTE_IDS)}, "
+                         f"got {_route!r}")
     if dev.type != "cuda":
         return lane_replay_plain(nwaves, dkc, slot, blade, write, valid,
                                  ptype, w0, rw, bit, dirrows, cmask, planes)
     lib = load_library()
-    dir_o = dirrows.clone()
-    planes_o = planes.clone()
-    w1 = torch.zeros((g, L), dtype=torch.int32, device=dev)
-    w2 = torch.zeros_like(w1)
-    w3 = torch.zeros_like(w1)
     nsteps = min(int(nwaves), L)
-    if g and nsteps > 0:
-        nb = nb2 // 2
-        with torch.cuda.device(dev):
-            _check(lib.lane_replay_launch(
-                g, L, S, span, nb, W, nsteps, int(bool(dkc)),
-                _lane_threads(nb, span),
-                *(t.data_ptr() for t in streams.values()),
-                dir_o.data_ptr(), cmask.data_ptr(), planes_o.data_ptr(),
-                w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), _stream(dev)),
-                "lane_replay")
-        LAUNCHES["lane_replay"] += 1
+    if not (g and nsteps > 0):
+        w1 = torch.zeros((g, L), dtype=torch.int32, device=dev)
+        return (dirrows.clone(), planes.clone(), w1, torch.zeros_like(w1),
+                torch.zeros_like(w1))
+    # The kernel writes every output word (0 past nsteps) and copies the
+    # state into the outputs (through shared memory on the "smem" route)
+    # before it walks.
+    w1 = torch.empty((g, L), dtype=torch.int32, device=dev)
+    w2 = torch.empty_like(w1)
+    w3 = torch.empty_like(w1)
+    dir_o = torch.empty_like(dirrows)
+    planes_o = torch.empty_like(planes)
+    nb = nb2 // 2
+    route = _route or _lane_route(S, span, nb, W, _lane_smem_limit(dev))
+    with torch.cuda.device(dev):
+        _check(lib.lane_replay_launch(
+            g, L, S, span, nb, W, nsteps, int(bool(dkc)),
+            _LANE_ROUTE_IDS[route],
+            *(t.data_ptr() for t in streams.values()),
+            dirrows.data_ptr(), cmask.data_ptr(), planes.data_ptr(),
+            dir_o.data_ptr(), planes_o.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), w3.data_ptr(), _stream(dev)),
+            f"lane_replay ({route})")
+    LAUNCHES["lane_replay"] += 1
+    LANE_ROUTES[route] += 1
     return dir_o, planes_o, w1, w2, w3
 
 
@@ -442,6 +494,17 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 # --------------------------------------------------------------------- #
 _MSI_ARGS = ("state", "sharers", "owner", "slots", "requesters", "is_write")
 _msi_tables: dict = {}
+# csrc/directory_msi.cu groups the requests by slot in tiles of 4,096
+# requests and 256 digit buckets (kTileReq, kRadix).
+_MSI_TILE = 4096
+_MSI_RADIX = 256
+
+
+def _msi_workspace_bytes(b: int) -> int:
+    """Scratch of the CUDA ``msi_transition`` for ``b`` requests: the
+    sorted records (int4), keys and batch indices twice (int32) and the
+    per-tile digit histograms (int32)."""
+    return 32 * b + 4 * _MSI_RADIX * -(-b // _MSI_TILE)
 
 
 def _msi_check(args):
@@ -483,10 +546,12 @@ def msi_transition(state: torch.Tensor, sharers: torch.Tensor,
         _msi_tables[dev] = torch.from_numpy(build_transition_table()).to(dev)
     outs = [torch.empty(s, dtype=torch.int32, device=dev) for _ in range(3)]
     outs += [torch.empty(b, dtype=torch.int32, device=dev) for _ in range(2)]
+    ws = torch.empty(_msi_workspace_bytes(b), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         _check(lib.msi_transition_launch(
             *(t.data_ptr() for t in args), _msi_tables[dev].data_ptr(), s, b,
-            *(t.data_ptr() for t in outs), _stream(dev)), "msi_transition")
+            *(t.data_ptr() for t in outs), ws.data_ptr(), ws.numel(),
+            _stream(dev)), "msi_transition")
     LAUNCHES["msi_transition"] += 1
     return tuple(outs)
 
@@ -578,8 +643,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = [
-    "FLASH_ROUTES", "LAUNCHES", "NO_MATCH", "build_library",
+    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "NO_MATCH", "build_library",
     "build_transition_table", "flash_attention", "lane_replay",
-    "load_library", "msi_transition", "msi_transition_vectorized",
-    "paged_attention", "protect_check", "reset_launches", "translate_lookup",
+    "lane_smem_bytes", "load_library", "msi_transition",
+    "msi_transition_vectorized", "paged_attention", "protect_check",
+    "reset_launches", "translate_lookup",
 ]

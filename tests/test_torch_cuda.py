@@ -91,6 +91,103 @@ def test_lane_replay_kernel_clamps_like_plain(cuda):
     _equal(ops.lane_replay(*dev_args), lane_replay_plain(*dev_args))
 
 
+def _lane_case(rng, g, L, S, span, nb, W, nwaves, dkc):
+    """Random stage-3 inputs: ptype 0/1/2 packets, ~10% invalid steps,
+    steps past ``nwaves`` never walked, and blades, slots, window starts
+    and page indices past either end (gathers clamp, scatters drop)."""
+    i32 = np.int32
+    return (
+        nwaves, dkc,
+        rng.integers(-3, S + 2, (g, L)).astype(i32),
+        rng.integers(-2, nb + 2, (g, L)).astype(i32),
+        rng.integers(0, 2, (g, L)).astype(i32), rng.random((g, L)) < 0.9,
+        rng.integers(0, 3, (g, L)).astype(i32),
+        rng.integers(-4, W + 2, (g, L)).astype(i32),
+        rng.integers(-2, span + 2, (g, L)).astype(i32),
+        rng.integers(0, 32, (g, L)).astype(i32),
+        np.stack([rng.integers(0, 3, (g, S)),
+                  rng.integers(-(1 << 31), 1 << 31, (g, S)),
+                  rng.integers(-1, nb, (g, S)), rng.integers(0, 2, (g, S))],
+                 -1).astype(i32),
+        rng.integers(-(1 << 31), 1 << 31, (g, S, span)).astype(i32),
+        rng.integers(-(1 << 31), 1 << 31, (g, 2 * nb, W)).astype(i32),
+    )
+
+
+def _lane_run(args, route):
+    """The kernel on ``route`` against the plain version, bytewise, with
+    one launch counted on that route."""
+    before = (ops.LAUNCHES["lane_replay"], dict(ops.LANE_ROUTES))
+    got = ops.lane_replay(*args, _route=route)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lane_replay"] == before[0] + 1
+    assert ops.LANE_ROUTES[route] == before[1][route] + 1
+    _equal(got, lane_replay_plain(*args))
+    return got
+
+
+@pytest.mark.parametrize("route", ["smem", "global"])
+@pytest.mark.parametrize("dkc", [False, True])
+@pytest.mark.parametrize("span", [1, 16])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 16])
+def test_lane_replay_routes_equal_plain(cuda, lanes, span, dkc, route):
+    rng = np.random.default_rng(lanes * 100 + span * 2 + dkc)
+    args = lane_inputs_to_device(*_lane_case(
+        rng, lanes, 96, 8, span, 8, 3 * span + 7, 80, dkc), device=cuda)
+    assert bool((args[6] == 1).any()) and bool((args[6] == 2).any())
+    _lane_run(args, route)
+
+
+@pytest.mark.parametrize("route", ["smem", "global"])
+def test_lane_replay_slots_sharing_a_plane_word(cuda, route):
+    """Two slots of one lane own the two halves of the same plane words:
+    each step's clears and inserts must see the step before."""
+    rng = np.random.default_rng(11)
+    L, nb, W, span = 256, 4, 6, 2
+    slot = (np.arange(L) % 2).astype(np.int32)[None]
+    cmask = np.zeros((1, 4, span), np.int32)
+    cmask[0, 0] = 0x0000FFFF
+    cmask[0, 1] = np.int32(-65536)  # 0xFFFF0000
+    bit = np.where(slot == 0, rng.integers(0, 16, (1, L)),
+                   rng.integers(16, 32, (1, L))).astype(np.int32)
+    dirrows = np.tile(np.array([0, 0, -1, 0], np.int32), (1, 4, 1))
+    args = lane_inputs_to_device(
+        L, True, slot, rng.integers(0, nb, (1, L)).astype(np.int32),
+        rng.integers(0, 2, (1, L)).astype(np.int32), np.ones((1, L), bool),
+        np.zeros((1, L), np.int32), np.full((1, L), 2, np.int32),
+        rng.integers(0, span, (1, L)).astype(np.int32), bit, dirrows, cmask,
+        np.zeros((1, 2 * nb, W), np.int32), device=cuda)
+    _, _, w1, _, _ = _lane_run(args, route)
+    assert bool(((w1 >> 7) != 0).any())  # invalidations happened
+
+
+def test_lane_replay_state_over_the_shared_memory_limit(cuda):
+    """A lane whose state is one plane column over the card's opt-in
+    shared memory takes the global route by itself; one column less, the
+    shared-memory route."""
+    limit = ops._lane_smem_limit(cuda)
+    S, span, nb = 64, 16, 8
+    fixed = ops.lane_smem_bytes(S, span, nb, 0)
+    W = (limit - fixed) // (8 * nb) + 1
+    assert ops.lane_smem_bytes(S, span, nb, W) > limit
+    assert ops.lane_smem_bytes(S, span, nb, W - 1) <= limit
+    rng = np.random.default_rng(5)
+    for w, route in ((W, "global"), (W - 1, "smem")):
+        assert ops._lane_route(S, span, nb, w, limit) == route
+        args = lane_inputs_to_device(*_lane_case(
+            rng, 2, 64, S, span, nb, w, 64, True), device=cuda)
+        before = dict(ops.LANE_ROUTES)
+        got = ops.lane_replay(*args)
+        torch.cuda.synchronize()
+        assert ops.LANE_ROUTES[route] == before[route] + 1
+        _equal(got, lane_replay_plain(*args))
+    # Forced onto the shared-memory route, the larger state cannot launch.
+    over = lane_inputs_to_device(*_lane_case(rng, 1, 8, S, span, nb, W, 8,
+                                             True), device=cuda)
+    with pytest.raises(RuntimeError, match="lane_replay"):
+        ops.lane_replay(*over, _route="smem")
+
+
 @pytest.mark.parametrize("kw", [
     dict(workload="TF", max_directory_entries=300),
     dict(workload="M_A", cache_bytes_per_blade=1 << 14),
@@ -310,6 +407,29 @@ def _msi_case(name):
         return (rng.integers(-3, 6, s), rng.integers(-(1 << 31), 1 << 31, s),
                 rng.integers(-3, 40, s), rng.integers(-2 * s, 2 * s, b),
                 rng.integers(-40, 40, b), rng.integers(0, 3, b))
+    # The slot-grouped kernel's edges: one chain holding the whole batch,
+    # chains of one, slots past either end (one chain each end after the
+    # clamp), requesters at and past the sign bit, B = 1 and S = 1.
+    if name == "one-hot-slot":
+        s, b = 30000, 20000
+        return (*_directory(rng, s, 8), np.full(b, 12345),
+                rng.integers(0, 8, b), rng.integers(0, 2, b))
+    if name == "all-distinct":
+        s, b = 30000, 30000
+        return (*_directory(rng, s, 8), rng.permutation(s),
+                rng.integers(0, 8, b), rng.integers(0, 2, b))
+    if name == "slots-past-either-end":
+        s, b = 300, 5000
+        return (*_directory(rng, s, 8), rng.integers(-3 * s, 3 * s, b),
+                rng.integers(0, 8, b), rng.integers(0, 2, b))
+    if name == "requesters-31-32-minus-1":
+        s, b = 64, 3000
+        return (*_directory(rng, s, 8), rng.integers(0, s, b),
+                rng.choice([31, 32, -1, 0, 5], b), rng.integers(0, 2, b))
+    if name in ("b1", "s1"):
+        s, b = (4096, 1) if name == "b1" else (1, 5000)
+        return (*_directory(rng, s), rng.integers(-2, s + 2, b),
+                rng.integers(0, 4, b), rng.integers(0, 2, b))
     s, b, nreq = dict(sweep_16=(16, 40, 4), sweep_128=(128, 500, 4),
                       hot_slot=(64, 400, 8), req_31=(16, 200, 32),
                       empty=(8, 0, 4))[name]
@@ -322,7 +442,9 @@ def _msi_case(name):
 
 @pytest.mark.parametrize("name", ["sweep_16", "sweep_128", "hot_slot",
                                   "req_31", "empty", "out-of-range",
-                                  "zipf-30000"])
+                                  "zipf-30000", "one-hot-slot",
+                                  "all-distinct", "slots-past-either-end",
+                                  "requesters-31-32-minus-1", "b1", "s1"])
 def test_msi_kernel_equals_plain(cuda, name):
     args = [to_device(a, torch.int32, cuda) for a in _msi_case(name)]
     before = ops.LAUNCHES["msi_transition"]
@@ -426,19 +548,34 @@ def test_msi_and_flash_raise_instead_of_falling_back(cuda, monkeypatch):
         def flash_attention_launch(self, *args):
             return 700
 
+        def lane_replay_launch(self, *args):
+            return 700
+
+        def lane_replay_smem_optin(self, out):
+            return 0  # leaves the limit at 0: the global route
+
     monkeypatch.setattr(ops, "_lib", Broken())
+    monkeypatch.setattr(ops, "_smem_optin", {})
     msi = [to_device(a, torch.int32, cuda) for a in _msi_case("sweep_16")]
-    before = dict(ops.LAUNCHES)
+    before = (dict(ops.LAUNCHES), dict(ops.LANE_ROUTES))
     with pytest.raises(RuntimeError, match="msi_transition"):
         ops.msi_transition(*msi)
     q = torch.zeros((1, 2, 64, 32), device=cuda)
     with pytest.raises(RuntimeError, match="flash_attention"):
         ops.flash_attention(q, q, q)
-    assert ops.LAUNCHES == before
+    lane = lane_inputs_to_device(*_lane_case(np.random.default_rng(0), 2, 32,
+                                             8, 4, 3, 12, 32, True),
+                                 device=cuda)
+    for route in ("smem", "global", None):
+        with pytest.raises(RuntimeError, match="lane_replay"):
+            ops.lane_replay(*lane, _route=route)
+    assert (ops.LAUNCHES, ops.LANE_ROUTES) == before
     with pytest.raises(ValueError):  # is_write left on the CPU
         ops.msi_transition(*msi[:5], msi[5].cpu())
     with pytest.raises(ValueError):  # v left on the CPU
         ops.flash_attention(q, q, q.cpu())
+    with pytest.raises(ValueError):  # planes left on the CPU
+        ops.lane_replay(*lane[:12], lane[12].cpu())
 
 
 def test_flash_wgmma_route_raises_when_the_tensor_map_fails(cuda,

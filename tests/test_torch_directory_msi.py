@@ -230,3 +230,13 @@ def test_wrapper_checks_its_inputs():
         P.msi_transition(z[:0], z[:0], z[:0], z, z, z)
     with pytest.raises(ValueError):
         P.msi_transition_vectorized(z, z, z, z[None], z, z)
+
+
+@pytest.mark.parametrize("b,nbytes", [(1, 1056), (4096, 132096),
+                                      (4097, 132128 + 1024),
+                                      (1_600_000, 51_200_000 + 391 * 1024)])
+def test_cuda_workspace_covers_the_grouping(b, nbytes):
+    """The CUDA kernel's scratch (csrc/directory_msi.cu checks it): sorted
+    records int4 [B], keys and batch indices twice int32 [B], and the
+    digit histograms int32 [256 x ceil(B / 4096)]."""
+    assert P._msi_workspace_bytes(b) == nbytes

@@ -298,3 +298,59 @@ def test_wrappers_validate_inputs():
         P.protect_check(torch.ones(2, dtype=torch.int32),
                         torch.zeros(3, dtype=torch.int64),
                         torch.ones(3, dtype=torch.int32), t)
+
+
+# Stage-3 shapes recorded from M_A replays on the 8-blade rack (S lane slots,
+# span window words, NB blades, W plane words), a TF pressure chunk, and the
+# H100's opt-in shared memory per block (232,448 bytes).
+_H100_SMEM = 232448
+
+
+@pytest.mark.parametrize("shape,nbytes,route", [
+    ((512, 1, 8, 193), 45248, "smem"),
+    ((32, 16, 8, 208), 38528, "smem"),
+    ((512, 16, 8, 208), 76928, "smem"),
+    ((256, 1, 8, 15425), 1014976, "global"),  # TF, directory pressure
+])
+def test_lane_route_on_recorded_shapes(shape, nbytes, route):
+    assert P.lane_smem_bytes(*shape) == nbytes
+    assert P._lane_route(*shape, _H100_SMEM) == route
+
+
+def test_lane_route_at_the_shared_memory_limit():
+    """One plane column (2 * NB words) more than fits takes the global
+    route; the shape that fills the limit exactly still fits."""
+    S, span, nb = 64, 16, 8
+    fixed = P.lane_smem_bytes(S, span, nb, 0)
+    w_fit = (_H100_SMEM - fixed) // (8 * nb)
+    assert P.lane_smem_bytes(S, span, nb, w_fit) <= _H100_SMEM
+    assert P._lane_route(S, span, nb, w_fit, _H100_SMEM) == "smem"
+    assert P.lane_smem_bytes(S, span, nb, w_fit + 1) > _H100_SMEM
+    assert P._lane_route(S, span, nb, w_fit + 1, _H100_SMEM) == "global"
+
+
+def test_lane_replay_route_argument():
+    """On CPU tensors the route is ignored (the plain version runs), but an
+    unknown route is refused; no launch or route is counted."""
+    rng = np.random.default_rng(3)
+    g, L, S, span, nb, W = 2, 16, 4, 2, 2, 6
+    args = lane_inputs_to_device(
+        np.int32(L), np.bool_(False),
+        rng.integers(0, S, (g, L)).astype(np.int32),
+        rng.integers(0, nb, (g, L)).astype(np.int32),
+        rng.integers(0, 2, (g, L)).astype(np.int32), np.ones((g, L), bool),
+        np.zeros((g, L), np.int32), rng.integers(0, W - span, (g, L)).astype(np.int32),
+        rng.integers(0, span, (g, L)).astype(np.int32),
+        rng.integers(0, 32, (g, L)).astype(np.int32),
+        np.tile(np.array([0, 0, -1, 0], np.int32), (g, S, 1)),
+        rng.integers(-(1 << 31), 1 << 31, (g, S, span)).astype(np.int32),
+        np.zeros((g, 2 * nb, W), np.int32), device=CPU)
+    P.reset_launches()
+    want = P.lane_replay(*args)
+    for route in ("smem", "global"):
+        for g_, w in zip(P.lane_replay(*args, _route=route), want):
+            assert torch.equal(g_, w)
+    with pytest.raises(ValueError, match="_route"):
+        P.lane_replay(*args, _route="shared")
+    assert P.LAUNCHES["lane_replay"] == 0
+    assert P.LANE_ROUTES == {"smem": 0, "global": 0}
