@@ -27,7 +27,10 @@ exits nonzero):
               on the inputs its main path gives it.  The replay kernels,
               bytewise, on the inputs recorded from one run of the main
               cell below: translate/protect on its 1.6M vaddrs and the
-              8x10 rack's tables, lane_replay on its largest chunk (and
+              8x10 rack's tables, timed cold, each with its ptxas
+              registers and shared memory, and translate again against a
+              table of 4,096 rows (the main path's 8 and 4,088 more);
+              lane_replay on its largest chunk (and
               every chunk timed back to back, on its own route and on the
               global one, with the wave steps they walk); the two
               lane_replay routes (state in shared memory, state in global
@@ -78,6 +81,9 @@ exits nonzero):
               run recorded in phase 4.  Phases 4, 6 and 7 report
               ops.LANE_ROUTES, the lane_replay launches per route.
 
+Every time taken "cold" (time_ms_cold) has the L2 flushed before each call
+and left clean: 64 MB written, then 128 MB read, neither timed.
+
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Needs one CUDA device; it refuses to run
 without one or outside a checkout of the repository.
@@ -118,6 +124,9 @@ TENSOR_OPS_S = 989e12
 SEED = 0
 SERVE = dict(arch="qwen3-4b", requests=16, prompt_len=500, shared_prefix=256,
              max_new=64, max_batch=8, page_tokens=16, num_pages=4096)
+
+# The large-table case of stage 2: a table of 4,096 rows.
+LARGE_T = 4096
 
 REPLAY_KERNELS = ("translate_lookup", "protect_check", "lane_replay")
 KERNELS = {
@@ -217,23 +226,42 @@ def time_ms(fn, reps: int, device, warm: bool = True,
     return (time.perf_counter() - t) * 1e3 / reps
 
 
-def time_ms_cold(fn, reps: int, device) -> float:
+# Bytes written, then read, between two calls timed cold: more than the
+# H100's 50 MB L2 each.
+FLUSH_BYTES = 64 << 20
+CLEAN_BYTES = 128 << 20
+
+
+def time_ms_cold(fn, reps: int, device, flush: str = "clean") -> float:
     """Mean time of ``fn()`` per call with the L2 cache flushed before each
-    call (a 64 MB write, not timed), as a decode step finds it after the
-    other layers: CUDA events around each call on the card (the loop
-    enqueued behind a device sleep), the host clock elsewhere."""
+    call, not timed, as a decode step finds it after the other layers:
+    CUDA events around each call on the card (the loop enqueued behind a
+    device sleep), the host clock elsewhere.
+
+    The flush writes 64 MB, which evicts everything but leaves the L2 full
+    of dirty lines; the timed call would then pay for writing them back as
+    it evicts them.  ``flush="clean"`` (the yardstick) follows the write
+    with a read of 128 MB, so the call finds the L2 cold and clean;
+    ``"dirty"`` stops after the write (the yardstick before PR 16, kept to
+    show what it charged)."""
     import torch
 
+    if flush not in ("clean", "dirty"):
+        raise ValueError(f"flush must be 'clean' or 'dirty', got {flush!r}")
     if device.type != "cuda":
         return time_ms(fn, reps, device)
     fn()
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    dirty = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    clean = (torch.zeros(CLEAN_BYTES // 8, dtype=torch.int64, device=device)
+             if flush == "clean" else None)
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda.synchronize(device)
     torch.cuda._sleep(HEAD_START_CYCLES)
     for start, end in events:
-        flush.zero_()
+        dirty.zero_()
+        if clean is not None:
+            clean.max()  # reads 128 MB, writes one word
         start.record()
         fn()
         end.record()
@@ -266,8 +294,9 @@ def sass_hgmma(lib) -> dict:
     return counts
 
 
-# Sources whose kernels must compile without register spills.
-NO_SPILL_SOURCES = ("lane_replay", "directory_msi")
+# Sources whose kernels must compile without register spills (their
+# registers and shared memory are reported in phase build).
+NO_SPILL_SOURCES = ("lane_replay", "directory_msi", "range_match")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -364,6 +393,23 @@ def record_calls(run):
     return calls
 
 
+def large_translate_table(translate, vaddrs, t: int):
+    """A translate table of ``t`` rows for the main path's vaddrs: its own
+    rows first, then rows around vaddrs of the run (prefixes 2^12 to 2^40,
+    every 64th row a copy of an earlier one: LPM ties), from SEED."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    n = t - translate.shape[0]
+    base = vaddrs.cpu().numpy()[rng.integers(0, vaddrs.shape[0], n)]
+    rows = np.stack([base, rng.integers(12, 41, n), rng.integers(0, 8, n),
+                     np.zeros(n, np.int64)], 1).astype(np.int64)
+    rows[63::64] = rows[rng.integers(0, 63, len(rows[63::64]))]
+    return torch.cat([translate, torch.from_numpy(rows).to(
+        translate.device)]).contiguous()
+
+
 def lane_bound(args):
     """Bytes and operations of one stage-3 launch on these inputs: each
     stream word of the waves it runs read once, rows, masks and planes
@@ -425,11 +471,16 @@ def phase_kernels(device, scale: float = 1.0):
     B, T, P = v_d.shape[0], translate.shape[0], protect.shape[0]
     err = exact("translate_lookup", ops.translate_lookup(v_d, translate),
                 translate_lookup_plain(v_d, translate))
+
+    def cold(fn, reps):
+        # Cold, as the main path finds its one call a trace; the dirty
+        # flush beside it (see time_ms_cold).
+        return dict(ms=time_ms_cold(fn, reps, device),
+                    dirty_flush_ms=time_ms_cold(fn, reps, device, "dirty"))
+
     rows["translate_lookup"] = dict(
         max_abs_err=err, shape=dict(B=B, T=T),
-        # Cold, as the main path finds its one call a trace.
-        ms=time_ms_cold(lambda: ops.translate_lookup(v_d, translate), 20,
-                        device),
+        **cold(lambda: ops.translate_lookup(v_d, translate), 20),
         plain_ms=time_ms(lambda: translate_lookup_plain(v_d, translate), 3,
                          device),
         bound=bound_ms(B * 8 + T * 32 + B * 8, B * T))
@@ -438,11 +489,22 @@ def phase_kernels(device, scale: float = 1.0):
                 (want,))
     rows["protect_check"] = dict(
         max_abs_err=err, shape=dict(B=B, T=P), allowed=int(want.sum()),
-        ms=time_ms_cold(lambda: ops.protect_check(p_d, v2_d, n_d, protect),
-                        20, device),
+        **cold(lambda: ops.protect_check(p_d, v2_d, n_d, protect), 20),
         plain_ms=time_ms(lambda: protect_check_plain(p_d, v2_d, n_d, protect),
                          3, device),
         bound=bound_ms(B * 16 + P * 32 + B, B * P))
+
+    # ---- extra: the main path's vaddrs against a table of 4,096 rows ----
+    big = large_translate_table(translate, v_d, LARGE_T)
+    want = translate_lookup_plain(v_d, big)
+    err = exact(f"translate_lookup (T {LARGE_T})",
+                ops.translate_lookup(v_d, big), want)
+    rows["translate_large_t"] = dict(
+        max_abs_err=err, shape=dict(B=B, T=LARGE_T),
+        hits=int((want[1] != ops.NO_MATCH).sum()),
+        ms=time_ms_cold(lambda: ops.translate_lookup(v_d, big), 5, device),
+        bound=bound_ms(B * 16 + LARGE_T * 32, B * LARGE_T))
+    del big, want
 
     # ---- extra: >= 1M vaddrs, a quarter unmapped, on the same tables ----
     rng = np.random.default_rng(0)
@@ -811,10 +873,10 @@ def paged_kernel_row(device, recorded):
     el = q.element_size()
     nbytes = 2 * q.numel() * el + 2 * pages * page * hkv * d * el
     nops = 4 * d * hq * int(lens.sum())
-    ms = time_ms_cold(lambda: ops.paged_attention(q, kp, vp, bt, sl), 50,
-                      device)
-    plain_ms = time_ms_cold(
-        lambda: paged_attention_plain(q, kp, vp, bt, sl), 5, device)
+    kernel = lambda: ops.paged_attention(q, kp, vp, bt, sl)  # noqa: E731
+    plain = lambda: paged_attention_plain(q, kp, vp, bt, sl)  # noqa: E731
+    ms = time_ms_cold(kernel, 50, device)
+    plain_ms = time_ms_cold(plain, 5, device)
     # Yardstick: one library call on the same K/V gathered to dense
     # [B, Hkv, S, D] beforehand, with a length mask.
     s_max = bt.shape[1] * page
@@ -828,9 +890,13 @@ def paged_kernel_row(device, recorded):
                                          enable_gqa=True)[:, :, 0]
     lib_err = held("scaled_dot_product_attention (yardstick)", lib,
                    paged_attention_plain(q, kp, vp, bt, sl), 2e-2)
-    library_ms = time_ms_cold(
-        lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
-                                               enable_gqa=True), 50, device)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kd, vd, attn_mask=mask, enable_gqa=True)
+    library_ms = time_ms_cold(library, 50, device)
+    # The same three under the flush that leaves the L2 dirty.
+    dirty = dict(ms=time_ms_cold(kernel, 50, device, "dirty"),
+                 plain_ms=time_ms_cold(plain, 5, device, "dirty"),
+                 library_ms=time_ms_cold(library, 50, device, "dirty"))
     bound = bound_ms(nbytes, nops, TENSOR_OPS_S)
     return dict(
         max_abs_err=max(err, err32), max_abs_err_bf16=err,
@@ -839,7 +905,7 @@ def paged_kernel_row(device, recorded):
                    seq_lens=sl.tolist(), kv_pages_read=pages,
                    dtype=str(q.dtype).split(".")[1]),
         extra=extra, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        library_err=lib_err, bytes=nbytes, bound=bound,
+        dirty_flush=dirty, library_err=lib_err, bytes=nbytes, bound=bound,
         share_of_bound=bound[0] / ms)
 
 
@@ -1260,6 +1326,10 @@ def main() -> int:
     emit({"phase": "serve", **serve})
     torch.cuda.empty_cache()
     kern = phase_kernels(device)
+    for kname, fn in (("translate_lookup", "translate_kernel"),
+                      ("protect_check", "protect_kernel")):
+        kern[kname]["ptxas"] = {k: v for k, v in resources["range_match"].items()
+                                if fn in k}
     kern["paged_attention"] = paged_kernel_row(device, recorded)
     del recorded
     emit({"phase": "kernels", **kern})
