@@ -27,10 +27,13 @@ exits nonzero):
               on the inputs its main path gives it.  The replay kernels,
               bytewise, on the inputs recorded from one run of the main
               cell below: translate/protect on its 1.6M vaddrs and the
-              8x10 rack's tables, timed cold, each with its ptxas
-              registers and shared memory, and translate again against a
-              table of 4,096 rows (the main path's 8 and 4,088 more);
-              lane_replay on its largest chunk (and
+              8x10 rack's tables, on the route the wrapper takes
+              (ops.TCAM_ROUTES) and forced onto each route that fits,
+              timed cold on both, each with its route, persistent grid,
+              ptxas registers and shared memory, and both again against
+              tables of 4,096 rows (the main path's rows and 4,088 or
+              4,095 more), timed on both routes; lane_replay on its
+              largest chunk (and
               every chunk timed back to back, on its own route and on the
               global one, with the wave steps they walk); the two
               lane_replay routes (state in shared memory, state in global
@@ -79,7 +82,8 @@ exits nonzero):
               kernels' launch counts of this run are the ones reported,
               and its lane_replay launches must equal the chunks of the
               run recorded in phase 4.  Phases 4, 6 and 7 report
-              ops.LANE_ROUTES, the lane_replay launches per route.
+              ops.LANE_ROUTES, the lane_replay launches per route, and 6
+              and 7 ops.TCAM_ROUTES, the stage-1/2 launches per route.
 
 Every time taken "cold" (time_ms_cold) has the L2 flushed before each call
 and left clean: 64 MB written, then 128 MB read, neither timed.
@@ -87,6 +91,14 @@ and left clean: 64 MB written, then 128 MB read, neither timed.
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Needs one CUDA device; it refuses to run
 without one or outside a checkout of the repository.
+
+`python3 chip_smoke.py --tcam-ab OTHER` compares the two TCAM kernels of
+this checkout with those of the checkout at OTHER (an older commit
+unpacked with `git archive`) in one call: each checkout, in a process of
+its own, times both kernels cold on the main path's recorded calls and
+on the two 4,096-row tables, held bytewise to the plain versions; the
+order is other, this, this, other, three times over, and the medians
+come last.
 """
 
 from __future__ import annotations
@@ -232,36 +244,29 @@ FLUSH_BYTES = 64 << 20
 CLEAN_BYTES = 128 << 20
 
 
-def time_ms_cold(fn, reps: int, device, flush: str = "clean") -> float:
+def time_ms_cold(fn, reps: int, device) -> float:
     """Mean time of ``fn()`` per call with the L2 cache flushed before each
     call, not timed, as a decode step finds it after the other layers:
     CUDA events around each call on the card (the loop enqueued behind a
     device sleep), the host clock elsewhere.
 
     The flush writes 64 MB, which evicts everything but leaves the L2 full
-    of dirty lines; the timed call would then pay for writing them back as
-    it evicts them.  ``flush="clean"`` (the yardstick) follows the write
-    with a read of 128 MB, so the call finds the L2 cold and clean;
-    ``"dirty"`` stops after the write (the yardstick before PR 16, kept to
-    show what it charged)."""
+    of dirty lines, then reads 128 MB, so the call finds the L2 cold and
+    clean: it pays for its own traffic, not for writing back the flush's."""
     import torch
 
-    if flush not in ("clean", "dirty"):
-        raise ValueError(f"flush must be 'clean' or 'dirty', got {flush!r}")
     if device.type != "cuda":
         return time_ms(fn, reps, device)
     fn()
     dirty = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    clean = (torch.zeros(CLEAN_BYTES // 8, dtype=torch.int64, device=device)
-             if flush == "clean" else None)
+    clean = torch.zeros(CLEAN_BYTES // 8, dtype=torch.int64, device=device)
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda.synchronize(device)
     torch.cuda._sleep(HEAD_START_CYCLES)
     for start, end in events:
         dirty.zero_()
-        if clean is not None:
-            clean.max()  # reads 128 MB, writes one word
+        clean.max()  # reads 128 MB, writes one word
         start.record()
         fn()
         end.record()
@@ -393,6 +398,27 @@ def record_calls(run):
     return calls
 
 
+def tcam_launch(kernel: str, b: int, t: int, device) -> dict:
+    """The route and persistent grid ``ops.<kernel>`` takes for ``b``
+    requests against a table of ``t`` rows on the card (``"plain"`` off
+    it)."""
+    from repro_torch.kernels import ops
+
+    if device.type != "cuda":
+        return dict(route="plain", grid=None)
+    route, grid = ops._tcam_launch(kernel, device, b, t, None)
+    return dict(route=route, grid=grid)
+
+
+def tcam_held(name, run, want, route: str) -> float:
+    """``run(route)`` on the wrapper's own route (``route``) and forced
+    onto each route that holds the table, every output bytewise equal to
+    ``want``."""
+    routes = [None, "tiled"] + (["staged"] if route == "staged" else [])
+    return max(exact(f"{name} ({r or 'own'} route)", run(r), want)
+               for r in routes)
+
+
 def large_translate_table(translate, vaddrs, t: int):
     """A translate table of ``t`` rows for the main path's vaddrs: its own
     rows first, then rows around vaddrs of the run (prefixes 2^12 to 2^40,
@@ -408,6 +434,46 @@ def large_translate_table(translate, vaddrs, t: int):
     rows[63::64] = rows[rng.integers(0, 63, len(rows[63::64]))]
     return torch.cat([translate, torch.from_numpy(rows).to(
         translate.device)]).contiguous()
+
+
+def large_protect_table(protect, vaddrs, t: int):
+    """A protect table of ``t`` rows for the main path's requests, as a
+    switch shared by 64 protection domains holds it: rows around vaddrs of
+    the run (prefixes 2^12 to 2^40, pdids 1-64, perms 0-3) first, then its
+    own rows, so that a request none of the new rows admits walks the
+    whole table; from SEED."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 1)
+    n = t - protect.shape[0]
+    base = vaddrs.cpu().numpy()[rng.integers(0, vaddrs.shape[0], n)]
+    rows = np.stack([rng.integers(1, 65, n), base, rng.integers(12, 41, n),
+                     rng.integers(0, 4, n)], 1).astype(np.int64)
+    return torch.cat([torch.from_numpy(rows).to(protect.device),
+                      protect]).contiguous()
+
+
+def protect_pairs(pdids, vaddrs, need, table) -> int:
+    """The (request, row) pairs protect_check needs on this data: each
+    request's rows up to the first that admits it, or all of them."""
+    import torch
+
+    from repro_torch.kernels.range_match import _prefix_masks
+
+    t = table.shape[0]
+    chunk = max(1, (64 << 20) // (8 * t))  # 64 MB a temporary
+    mask = _prefix_masks(table[:, 2].to(torch.int32))
+    base = table[:, 1] & mask
+    total = 0
+    for lo in range(0, vaddrs.shape[0], chunk):
+        nd = need[lo:lo + chunk, None]
+        ok = ((vaddrs[lo:lo + chunk, None] & mask) == base) & (
+            pdids[lo:lo + chunk, None] == table[:, 0]) & (
+            (table[:, 3] & nd) == nd)
+        first = torch.where(ok.any(1), ok.int().argmax(1) + 1, t)
+        total += int(first.sum())
+    return total
 
 
 def lane_bound(args):
@@ -438,7 +504,7 @@ def lane_route(args, device) -> str:
         return "plain"
     return ops._lane_route(args[11].shape[1], args[11].shape[2],
                            args[12].shape[1] // 2, args[12].shape[2],
-                           ops._lane_smem_limit(device))
+                           ops._smem_optin_limit(device))
 
 
 def phase_kernels(device, scale: float = 1.0):
@@ -469,41 +535,63 @@ def phase_kernels(device, scale: float = 1.0):
     (v_d, translate), = calls["translate_lookup"]
     (p_d, v2_d, n_d, protect), = calls["protect_check"]
     B, T, P = v_d.shape[0], translate.shape[0], protect.shape[0]
-    err = exact("translate_lookup", ops.translate_lookup(v_d, translate),
-                translate_lookup_plain(v_d, translate))
 
-    def cold(fn, reps):
-        # Cold, as the main path finds its one call a trace; the dirty
-        # flush beside it (see time_ms_cold).
-        return dict(ms=time_ms_cold(fn, reps, device),
-                    dirty_flush_ms=time_ms_cold(fn, reps, device, "dirty"))
+    def translate_on(v, tbl):
+        return lambda route=None: ops.translate_lookup(v, tbl, _route=route)
 
+    def protect_on(*args):
+        return lambda route=None: (ops.protect_check(*args, _route=route),)
+
+    def cold(run, reps):
+        # Cold, as the main path finds its one call a trace, on the route
+        # the wrapper picks and on the tiled route.
+        return dict(ms=time_ms_cold(run, reps, device),
+                    tiled_ms=time_ms_cold(lambda: run("tiled"), reps, device))
+
+    run = translate_on(v_d, translate)
+    launch = tcam_launch("translate_lookup", B, T, device)
     rows["translate_lookup"] = dict(
-        max_abs_err=err, shape=dict(B=B, T=T),
-        **cold(lambda: ops.translate_lookup(v_d, translate), 20),
+        max_abs_err=tcam_held("translate_lookup", run,
+                              translate_lookup_plain(v_d, translate),
+                              launch["route"]),
+        shape=dict(B=B, T=T, **launch), **cold(run, 20),
         plain_ms=time_ms(lambda: translate_lookup_plain(v_d, translate), 3,
                          device),
         bound=bound_ms(B * 8 + T * 32 + B * 8, B * T))
     want = protect_check_plain(p_d, v2_d, n_d, protect)
-    err = exact("protect_check", (ops.protect_check(p_d, v2_d, n_d, protect),),
-                (want,))
+    run = protect_on(p_d, v2_d, n_d, protect)
+    launch = tcam_launch("protect_check", B, P, device)
     rows["protect_check"] = dict(
-        max_abs_err=err, shape=dict(B=B, T=P), allowed=int(want.sum()),
-        **cold(lambda: ops.protect_check(p_d, v2_d, n_d, protect), 20),
+        max_abs_err=tcam_held("protect_check", run, (want,), launch["route"]),
+        shape=dict(B=B, T=P, **launch),
+        allowed=int(want.sum()), **cold(run, 20),
         plain_ms=time_ms(lambda: protect_check_plain(p_d, v2_d, n_d, protect),
                          3, device),
-        bound=bound_ms(B * 16 + P * 32 + B, B * P))
+        bound=bound_ms(B * 16 + P * 32 + B,
+                       protect_pairs(p_d, v2_d, n_d, protect)))
 
-    # ---- extra: the main path's vaddrs against a table of 4,096 rows ----
+    # ---- extra: the main path's requests against tables of 4,096 rows --
     big = large_translate_table(translate, v_d, LARGE_T)
     want = translate_lookup_plain(v_d, big)
-    err = exact(f"translate_lookup (T {LARGE_T})",
-                ops.translate_lookup(v_d, big), want)
+    run = translate_on(v_d, big)
+    launch = tcam_launch("translate_lookup", B, LARGE_T, device)
     rows["translate_large_t"] = dict(
-        max_abs_err=err, shape=dict(B=B, T=LARGE_T),
-        hits=int((want[1] != ops.NO_MATCH).sum()),
-        ms=time_ms_cold(lambda: ops.translate_lookup(v_d, big), 5, device),
+        max_abs_err=tcam_held(f"translate_lookup (T {LARGE_T})", run, want,
+                              launch["route"]),
+        shape=dict(B=B, T=LARGE_T, **launch),
+        hits=int((want[1] != ops.NO_MATCH).sum()), **cold(run, 5),
         bound=bound_ms(B * 16 + LARGE_T * 32, B * LARGE_T))
+    big = large_protect_table(protect, v2_d, LARGE_T)
+    want = protect_check_plain(p_d, v2_d, n_d, big)
+    run = protect_on(p_d, v2_d, n_d, big)
+    launch = tcam_launch("protect_check", B, LARGE_T, device)
+    rows["protect_large_t"] = dict(
+        max_abs_err=tcam_held(f"protect_check (T {LARGE_T})", run, (want,),
+                              launch["route"]),
+        shape=dict(B=B, T=LARGE_T, **launch), allowed=int(want.sum()),
+        **cold(run, 5),
+        bound=bound_ms(B * 16 + LARGE_T * 32 + B,
+                       protect_pairs(p_d, v2_d, n_d, big)))
     del big, want
 
     # ---- extra: >= 1M vaddrs, a quarter unmapped, on the same tables ----
@@ -517,11 +605,12 @@ def phase_kernels(device, scale: float = 1.0):
         np.int32)).to(device)
     xn = torch.from_numpy(rng.integers(1, 3, nreq).astype(np.int32)).to(device)
     want = translate_lookup_plain(xv, translate)
-    err = exact("translate_lookup (mixed)", ops.translate_lookup(xv, translate),
-                want)
+    err = tcam_held("translate_lookup (mixed)", translate_on(xv, translate),
+                    want, rows["translate_lookup"]["shape"]["route"])
     want_a = protect_check_plain(xp, xv, xn, protect)
-    err = max(err, exact("protect_check (mixed)",
-                         (ops.protect_check(xp, xv, xn, protect),), (want_a,)))
+    err = max(err, tcam_held("protect_check (mixed)",
+                             protect_on(xp, xv, xn, protect), (want_a,),
+                             rows["protect_check"]["shape"]["route"]))
     rows["mixed_tcam"] = dict(max_abs_err=err, B=nreq,
                               hits=int((want[1] != ops.NO_MATCH).sum()),
                               allowed=int(want_a.sum()))
@@ -873,10 +962,10 @@ def paged_kernel_row(device, recorded):
     el = q.element_size()
     nbytes = 2 * q.numel() * el + 2 * pages * page * hkv * d * el
     nops = 4 * d * hq * int(lens.sum())
-    kernel = lambda: ops.paged_attention(q, kp, vp, bt, sl)  # noqa: E731
-    plain = lambda: paged_attention_plain(q, kp, vp, bt, sl)  # noqa: E731
-    ms = time_ms_cold(kernel, 50, device)
-    plain_ms = time_ms_cold(plain, 5, device)
+    ms = time_ms_cold(lambda: ops.paged_attention(q, kp, vp, bt, sl), 50,
+                      device)
+    plain_ms = time_ms_cold(
+        lambda: paged_attention_plain(q, kp, vp, bt, sl), 5, device)
     # Yardstick: one library call on the same K/V gathered to dense
     # [B, Hkv, S, D] beforehand, with a length mask.
     s_max = bt.shape[1] * page
@@ -890,13 +979,9 @@ def paged_kernel_row(device, recorded):
                                          enable_gqa=True)[:, :, 0]
     lib_err = held("scaled_dot_product_attention (yardstick)", lib,
                    paged_attention_plain(q, kp, vp, bt, sl), 2e-2)
-    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q4, kd, vd, attn_mask=mask, enable_gqa=True)
-    library_ms = time_ms_cold(library, 50, device)
-    # The same three under the flush that leaves the L2 dirty.
-    dirty = dict(ms=time_ms_cold(kernel, 50, device, "dirty"),
-                 plain_ms=time_ms_cold(plain, 5, device, "dirty"),
-                 library_ms=time_ms_cold(library, 50, device, "dirty"))
+    library_ms = time_ms_cold(
+        lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                               enable_gqa=True), 50, device)
     bound = bound_ms(nbytes, nops, TENSOR_OPS_S)
     return dict(
         max_abs_err=max(err, err32), max_abs_err_bf16=err,
@@ -905,7 +990,7 @@ def paged_kernel_row(device, recorded):
                    seq_lens=sl.tolist(), kv_pages_read=pages,
                    dtype=str(q.dtype).split(".")[1]),
         extra=extra, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        dirty_flush=dirty, library_err=lib_err, bytes=nbytes, bound=bound,
+        library_err=lib_err, bytes=nbytes, bound=bound,
         share_of_bound=bound[0] / ms)
 
 
@@ -1202,6 +1287,7 @@ def phase_parity(device, scale: float = 1.0):
         tb = time.perf_counter() - t
         launches = {k: ops.LAUNCHES[k] for k in REPLAY_KERNELS}
         lane_routes = dict(ops.LANE_ROUTES)
+        tcam_routes = dict(ops.TCAM_ROUTES)
         t = time.perf_counter()
         rack_s = DisaggregatedRack(system="mind", engine="scalar", **RACK)
         rs = rack_s.run(trace)
@@ -1234,7 +1320,7 @@ def phase_parity(device, scale: float = 1.0):
                         directory_peak_entries=sram[0][1],
                         runtime_us=rb.runtime_us, cuda_s=tb, scalar_s=ts,
                         phase_times=rb.phase_times, launches=launches,
-                        lane_routes=lane_routes))
+                        lane_routes=lane_routes, tcam_routes=tcam_routes))
     return out
 
 
@@ -1257,6 +1343,7 @@ def phase_main(device, scale: float = 1.0):
     wall = time.perf_counter() - t
     launches = {k: ops.LAUNCHES[k] for k in REPLAY_KERNELS}
     lane_routes = dict(ops.LANE_ROUTES)
+    tcam_routes = dict(ops.TCAM_ROUTES)
     if r.stats.accesses != len(trace):
         raise AssertionError(f"{r.stats.accesses} accesses replayed of "
                              f"{len(trace)}")
@@ -1270,7 +1357,70 @@ def phase_main(device, scale: float = 1.0):
                 runtime_us=r.runtime_us,
                 stats={f: getattr(r.stats, f) for f in STAT_FIELDS},
                 phase_times=r.phase_times, launches=launches,
-                lane_routes=lane_routes)
+                lane_routes=lane_routes, tcam_routes=tcam_routes)
+
+
+def tcam_times(root: Path) -> dict:
+    """Cold ms of the TCAM kernels of the checkout at ``root`` (its own
+    ``src``, built there) on the main path's recorded calls: translate at
+    T 8 and 4,096, protect at T 1 and 4,096, each first held bytewise to
+    its plain version."""
+    import torch
+
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.range_match import (
+        protect_check_plain,
+        translate_lookup_plain,
+    )
+
+    device = torch.device("cuda", 0)
+    ops.load_library()
+    rack, trace = make_rack(*MAIN, device)
+    calls = record_calls(lambda: rack.run(trace))
+    (v, translate), = calls["translate_lookup"]
+    (p, v2, need, protect), = calls["protect_check"]
+    cases = {}
+    for t, tbl in ((translate.shape[0], translate),
+                   (LARGE_T, large_translate_table(translate, v, LARGE_T))):
+        cases[f"translate T {t}"] = (
+            lambda tbl=tbl: ops.translate_lookup(v, tbl),
+            translate_lookup_plain(v, tbl))
+    for t, tbl in ((protect.shape[0], protect),
+                   (LARGE_T, large_protect_table(protect, v2, LARGE_T))):
+        cases[f"protect T {t}"] = (
+            lambda tbl=tbl: (ops.protect_check(p, v2, need, tbl),),
+            (protect_check_plain(p, v2, need, tbl),))
+    out = {}
+    for name, (run, want) in cases.items():
+        exact(f"{name} ({root.name})", run(), want)
+        out[name] = time_ms_cold(run, 5 if str(LARGE_T) in name else 20,
+                                 device)
+    return out
+
+
+def tcam_ab(other: Path) -> int:
+    """``--tcam-ab``: :func:`tcam_times` of ``other`` and of this checkout
+    in turns (other, this, this, other, three times), then the medians."""
+    import statistics
+
+    runs = {"other": [], "this": []}
+    for _ in range(3):
+        for side in ("other", "this", "this", "other"):
+            root = other if side == "other" else ROOT
+            res = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--tcam-times", str(root)], capture_output=True, text=True,
+                timeout=600)
+            if res.returncode:
+                print(res.stderr[-4000:], file=sys.stderr)
+                return 1
+            runs[side].append(json.loads(res.stdout.splitlines()[-1]))
+            emit({"side": side, "root": str(root), **runs[side][-1]})
+    emit({"medians": {side: {k: statistics.median(r[k] for r in rs)
+                             for k in rs[0]} for side, rs in runs.items()},
+          "nvidia_smi": nvidia_smi_line()})
+    return 0
 
 
 def main() -> int:
@@ -1287,6 +1437,11 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
               f"root of a checkout", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tcam-times"]:
+        emit(tcam_times(Path(sys.argv[2]).resolve()))
+        return 0
+    if sys.argv[1:2] == ["--tcam-ab"]:
+        return tcam_ab(Path(sys.argv[2]).resolve())
     sys.path.insert(0, str(SRC))
     device = torch.device("cuda", 0)
     # fp32 products stay fp32 (no TF32) in every reference comparison.

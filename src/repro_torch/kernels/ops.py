@@ -15,7 +15,9 @@ through the kernels; one call of a wrapper that launches several kernels
 (``paged_attention``: split, then combine; ``msi_transition``: the
 grouping passes, then the walk) counts once.  ``FLASH_ROUTES`` tallies
 the ``flash_attention`` launches by route (:func:`_flash_route`),
-``LANE_ROUTES`` the ``lane_replay`` launches (:func:`_lane_route`).
+``LANE_ROUTES`` the ``lane_replay`` launches (:func:`_lane_route`),
+``TCAM_ROUTES`` the ``translate_lookup`` and ``protect_check`` launches
+(:func:`_tcam_route`).
 
 The kernels are built from ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` at
 first use — one ``nvcc`` per source, all started together, then one link —
@@ -62,13 +64,14 @@ LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
             "paged_attention": 0, "msi_transition": 0, "flash_attention": 0}
 FLASH_ROUTES = {"wgmma": 0, "simt": 0}
 LANE_ROUTES = {"smem": 0, "global": 0}
+TCAM_ROUTES = {"staged": 0, "tiled": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES, LANE_ROUTES):
+    for counts in (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -138,8 +141,13 @@ def build_library() -> Path:
 
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rm_translate.argtypes = [p, i, p, i, p, p, p]
-    lib.rm_protect.argtypes = [p, p, p, i, p, i, p, p]
+    # ... outputs, route, grid, stream
+    lib.rm_translate.argtypes = [p, i, p, i, p, p, i, i, p]
+    lib.rm_protect.argtypes = [p, p, p, i, p, i, p, i, i, p]
+    # kernel (0 translate, 1 protect), route, T, out
+    lib.rm_blocks_per_sm.argtypes = [i, i, i, p]
+    lib.rm_geometry.argtypes = [i, p]  # kernel, out
+    lib.rm_geometry.restype = None
     # G L S span NB W nsteps dkc route, 8 streams, dirrows cmask planes in,
     # dirrows planes out, w1 w2 w3, stream
     lib.lane_replay_launch.argtypes = [i] * 9 + [p] * 17
@@ -159,7 +167,8 @@ def _declare(lib) -> None:
                                            + [ctypes.c_float, i, p])
     lib.flash_attention_sm90_launch.argtypes = (
         lib.flash_attention_launch.argtypes)
-    for f in (lib.rm_translate, lib.rm_protect, lib.lane_replay_launch,
+    for f in (lib.rm_translate, lib.rm_protect, lib.rm_blocks_per_sm,
+              lib.lane_replay_launch,
               lib.lane_replay_smem_optin,
               lib.paged_attention_split_launch,
               lib.paged_attention_combine_launch, lib.msi_transition_launch,
@@ -211,13 +220,94 @@ def _int32_range(n: int, name: str) -> None:
         raise ValueError(f"{name}={n} exceeds the kernels' int32 sizes")
 
 
+_smem_optin: dict = {}
+
+
+def _smem_optin_limit(dev: torch.device) -> int:
+    """The card's opt-in shared memory per block, read once per device
+    (the limit both ``lane_replay`` and the TCAM kernels route by)."""
+    if dev not in _smem_optin:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _check(load_library().lane_replay_smem_optin(ctypes.byref(out)),
+                   "opt-in shared-memory limit")
+        _smem_optin[dev] = out.value
+    return _smem_optin[dev]
+
+
 # --------------------------------------------------------------------- #
 # Stages 1 and 2: TCAM protection and LPM translation.
 # --------------------------------------------------------------------- #
-def translate_lookup(vaddrs: torch.Tensor, table: torch.Tensor):
+_TCAM_ROUTE_IDS = {"staged": 0, "tiled": 1}
+_TCAM_KERNEL_IDS = {"translate_lookup": 0, "protect_check": 1}
+_tcam_shapes: dict = {}
+_tcam_occupancy: dict = {}
+
+
+def _tcam_geometry(kernel: str) -> tuple[int, int, int]:
+    """``(requests of one block a tile, bytes of one decoded table row in
+    shared memory, rows of one table tile of the "tiled" route)`` of
+    ``kernel``, as ``csrc/range_match.cu`` defines them (read once from
+    the library)."""
+    if kernel not in _tcam_shapes:
+        out = (ctypes.c_int * 3)()
+        load_library().rm_geometry(_TCAM_KERNEL_IDS[kernel], out)
+        _tcam_shapes[kernel] = tuple(out)
+    return _tcam_shapes[kernel]
+
+
+def _tcam_route(t: int, smem_limit: int, row_bytes: int) -> str:
+    """Where a TCAM kernel keeps the table, from its rows alone:
+    ``"staged"`` (decoded once per block into shared memory,
+    ``row_bytes`` a row) when it fits in the block's opt-in shared memory
+    (``smem_limit`` bytes), else ``"tiled"`` (decoded a tile of rows at a
+    time for each tile of requests)."""
+    return "staged" if row_bytes * t <= smem_limit else "tiled"
+
+
+def _tcam_grid(b: int, sms: int, blocks_per_sm: int, tile: int) -> int:
+    """The persistent grid of a TCAM kernel: every block the card holds at
+    once (``sms * blocks_per_sm``), but no more blocks than tiles of
+    ``tile`` requests."""
+    return max(1, min(sms * blocks_per_sm, -(-b // tile)))
+
+
+def _tcam_launch(kernel: str, dev: torch.device, b: int, t: int,
+                 forced: str | None) -> tuple[str, int]:
+    """``(route, grid)`` of one TCAM launch: the route ``forced`` or from
+    :func:`_tcam_route` on the card's opt-in shared memory, and the grid
+    from :func:`_tcam_grid` on the blocks of that kernel and route that
+    one SM holds (read once per device, kernel, route and staged table
+    size)."""
+    tile, row_bytes, _ = _tcam_geometry(kernel)
+    route = forced or _tcam_route(t, _smem_optin_limit(dev), row_bytes)
+    key = (dev, kernel, route, t if route == "staged" else None)
+    if key not in _tcam_occupancy:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _check(load_library().rm_blocks_per_sm(
+                _TCAM_KERNEL_IDS[kernel], _TCAM_ROUTE_IDS[route], t,
+                ctypes.byref(out)), f"{kernel} ({route})")
+        _tcam_occupancy[key] = out.value
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return route, _tcam_grid(b, sms, _tcam_occupancy[key], tile)
+
+
+def _tcam_check_route(route) -> None:
+    if route is not None and route not in _TCAM_ROUTE_IDS:
+        raise ValueError(f"_route must be one of {sorted(_TCAM_ROUTE_IDS)}, "
+                         f"got {route!r}")
+
+
+def translate_lookup(vaddrs: torch.Tensor, table: torch.Tensor, *,
+                     _route: str | None = None):
     """LPM-translate int64 ``vaddrs [B]`` against the int64 table
     ``[T, 4]`` = (base, log2, blade, pa_delta).  Returns (blade int32
-    ``[B]``, row int32 ``[B]``), ``(-1, NO_MATCH)`` on a miss."""
+    ``[B]``, row int32 ``[B]``), ``(-1, NO_MATCH)`` on a miss.
+
+    On the card the route comes from :func:`_tcam_route`; ``_route``
+    (``"staged"`` or ``"tiled"``) forces one, for tests that hold the two
+    against each other.  A forced ``"staged"`` that does not fit raises."""
     dev = vaddrs.device
     _expect(vaddrs, "vaddrs", torch.int64, 1, dev)
     _expect(table, "table", torch.int64, 2, dev)
@@ -227,25 +317,31 @@ def translate_lookup(vaddrs: torch.Tensor, table: torch.Tensor):
     _int32_range(b, "B")
     if t >= _LPM_ROWS:
         raise ValueError(f"table has {t} rows; LPM keys need < {_LPM_ROWS}")
+    _tcam_check_route(_route)
     if dev.type != "cuda":
         return translate_lookup_plain(vaddrs, table)
     lib = load_library()
     blade = torch.empty(b, dtype=torch.int32, device=dev)
     row = torch.empty(b, dtype=torch.int32, device=dev)
     if b:
+        route, grid = _tcam_launch("translate_lookup", dev, b, t, _route)
         with torch.cuda.device(dev):
             _check(lib.rm_translate(vaddrs.data_ptr(), b, table.data_ptr(), t,
                                     blade.data_ptr(), row.data_ptr(),
-                                    _stream(dev)), "translate_lookup")
+                                    _TCAM_ROUTE_IDS[route], grid,
+                                    _stream(dev)), f"translate_lookup ({route})")
         LAUNCHES["translate_lookup"] += 1
+        TCAM_ROUTES[route] += 1
     return blade, row
 
 
 def protect_check(pdids: torch.Tensor, vaddrs: torch.Tensor,
-                  need: torch.Tensor, table: torch.Tensor):
+                  need: torch.Tensor, table: torch.Tensor, *,
+                  _route: str | None = None):
     """Parallel-TCAM protection check of int32 ``pdids``, int64 ``vaddrs``
     and int32 ``need`` (each ``[B]``) against the int64 table ``[T, 4]`` =
-    (pdid, base, log2, perm).  Returns the bool allow mask ``[B]``."""
+    (pdid, base, log2, perm).  Returns the bool allow mask ``[B]``.
+    ``_route`` as for :func:`translate_lookup`."""
     dev = vaddrs.device
     _expect(pdids, "pdids", torch.int32, 1, dev)
     _expect(vaddrs, "vaddrs", torch.int64, 1, dev)
@@ -257,19 +353,22 @@ def protect_check(pdids: torch.Tensor, vaddrs: torch.Tensor,
                          "and table must be [T, 4]")
     _int32_range(b, "B")
     _int32_range(t, "T")
+    _tcam_check_route(_route)
     if dev.type != "cuda":
         return protect_check_plain(pdids, vaddrs, need, table)
     lib = load_library()
     allow = torch.empty(b, dtype=torch.bool, device=dev)
     if b:
+        route, grid = _tcam_launch("protect_check", dev, b, t, _route)
         with torch.cuda.device(dev):
             _check(lib.rm_protect(pdids.data_ptr(), vaddrs.data_ptr(),
                                   need.data_ptr(), b, table.data_ptr(), t,
-                                  allow.data_ptr(), _stream(dev)),
-                   "protect_check")
+                                  allow.data_ptr(), _TCAM_ROUTE_IDS[route],
+                                  grid, _stream(dev)),
+                   f"protect_check ({route})")
         LAUNCHES["protect_check"] += 1
+        TCAM_ROUTES[route] += 1
     return allow
-
 
 
 # --------------------------------------------------------------------- #
@@ -282,7 +381,6 @@ _STREAMS = ("slot", "blade", "write", "valid", "ptype", "w0", "rw", "bit")
 # partial window sums (3 x 32 x 33).
 _LANE_FIXED_INTS = (12 + 2) * 32 + 2048 + 3 * 32 * 33
 _LANE_ROUTE_IDS = {"smem": 0, "global": 1}
-_smem_optin: dict = {}
 
 
 def lane_smem_bytes(S: int, span: int, NB: int, W: int) -> int:
@@ -298,17 +396,6 @@ def _lane_route(S: int, span: int, NB: int, W: int, smem_limit: int) -> str:
     (``smem_limit`` bytes), else ``"global"``."""
     fits = lane_smem_bytes(S, span, NB, W) <= smem_limit
     return "smem" if fits else "global"
-
-
-def _lane_smem_limit(dev: torch.device) -> int:
-    """The card's opt-in shared memory per block, read once per device."""
-    if dev not in _smem_optin:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            _check(load_library().lane_replay_smem_optin(ctypes.byref(out)),
-                   "lane_replay (shared-memory limit)")
-        _smem_optin[dev] = out.value
-    return _smem_optin[dev]
 
 
 def lane_replay(nwaves, dkc, slot, blade, write, valid, ptype, w0, rw, bit,
@@ -369,7 +456,7 @@ def lane_replay(nwaves, dkc, slot, blade, write, valid, ptype, w0, rw, bit,
     dir_o = torch.empty_like(dirrows)
     planes_o = torch.empty_like(planes)
     nb = nb2 // 2
-    route = _route or _lane_route(S, span, nb, W, _lane_smem_limit(dev))
+    route = _route or _lane_route(S, span, nb, W, _smem_optin_limit(dev))
     with torch.cuda.device(dev):
         _check(lib.lane_replay_launch(
             g, L, S, span, nb, W, nsteps, int(bool(dkc)),
@@ -643,7 +730,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = [
-    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "NO_MATCH", "build_library",
+    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "NO_MATCH", "TCAM_ROUTES",
+    "build_library",
     "build_transition_table", "flash_attention", "lane_replay",
     "lane_smem_bytes", "load_library", "msi_transition",
     "msi_transition_vectorized", "paged_attention", "protect_check",

@@ -72,6 +72,141 @@ def test_stage12_kernels_equal_plain(cuda, b, t):
            (protect_check_plain(pd, args[0], need, args[2]),))
 
 
+# The two TCAM routes (ops._tcam_route): the table decoded once per block in
+# shared memory, or a tile of rows at a time.  "over" stands for one row
+# past what the staged route holds on this card, "tile" for a kernel's
+# requests of one block a step (ops._tcam_geometry).
+
+
+def _tcam_over(cuda):
+    """The fewest table rows the staged route cannot hold on this card."""
+    _, row_bytes, _ = ops._tcam_geometry("translate_lookup")
+    return ops._smem_optin_limit(cuda) // row_bytes + 1
+
+
+def test_tcam_geometry_is_what_the_cpu_pins_assume(cuda):
+    # tests/test_torch_kernels.py pins _tcam_route and _tcam_grid with it.
+    assert ops._tcam_geometry("translate_lookup") == (2048, 24, 1024)
+    assert ops._tcam_geometry("protect_check") == (1024, 24, 1024)
+
+
+def _tcam_case(rng, b, t):
+    """Stage-1/2 inputs: a table of ``t`` rows around 97 addresses (every
+    log2 in [0, 63] when ``t >= 64``, then log2 outside it and duplicated
+    rows for LPM ties), ``b`` vaddrs one bit away from those addresses, a
+    quarter of them unmapped, and pdids and needs that admit some."""
+    vpool = rng.integers(-(1 << 62), 1 << 62, 97)
+    lg = rng.integers(0, 64, t)
+    lg[:64] = np.arange(min(t, 64))
+    lg[64:68] = [-7, 64, 2047, 4096][:max(0, min(t, 68) - 64)]
+    base = vpool[rng.integers(0, len(vpool), t)]
+    # Short prefixes over negative addresses only: unmapped vaddrs miss.
+    base = np.where(np.clip(lg, 0, 63) >= 47, -np.abs(base) - 1, base)
+    translate = np.stack([base, lg, rng.integers(0, 8, t),
+                          np.zeros(t, np.int64)], 1).astype(np.int64)
+    protect = np.stack([rng.integers(1, 3, t), base, lg,
+                        rng.integers(0, 4, t)], 1).astype(np.int64)
+    if t >= 80:
+        translate[t // 2:t // 2 + 4] = translate[70:74]  # ties
+    v = vpool[rng.integers(0, len(vpool), b)] ^ (
+        np.int64(1) << rng.integers(0, 64, b).astype(np.int64))
+    v = np.where(rng.random(b) < 0.25, rng.integers(0, 1 << 47, b), v)
+    return (translate, protect, v, rng.integers(1, 3, b).astype(np.int32),
+            rng.integers(0, 4, b).astype(np.int32))
+
+
+def _view(a, k, dtype, device):
+    """``a`` on the card as a contiguous view ``k`` elements into its
+    storage (k = 1-3 leaves it off 16-byte alignment)."""
+    full = to_device(np.concatenate([np.zeros(k, a.dtype), a]), dtype, device)
+    return full[k:]
+
+
+def _tcam_routes(cuda, t):
+    over = ops._tcam_route(t, ops._smem_optin_limit(cuda),
+                           ops._tcam_geometry("translate_lookup")[1])
+    return ["tiled"] if over == "tiled" else ["staged", "tiled"]
+
+
+def _tcam_run(cuda, translate, protect, v, pd, nd):
+    """Both kernels on every route that fits, each bytewise to its plain
+    version (and so to each other), one launch counted on its route."""
+    want_t = translate_lookup_plain(v, translate)
+    want_p = protect_check_plain(pd, v, nd, protect)
+    for route in _tcam_routes(cuda, translate.shape[0]):
+        before = (dict(ops.LAUNCHES), dict(ops.TCAM_ROUTES))
+        got_t = ops.translate_lookup(v, translate, _route=route)
+        got_p = ops.protect_check(pd, v, nd, protect, _route=route)
+        torch.cuda.synchronize()
+        launched = int(v.shape[0] > 0)
+        for k in ("translate_lookup", "protect_check"):
+            assert ops.LAUNCHES[k] == before[0][k] + launched
+        assert ops.TCAM_ROUTES[route] == before[1][route] + 2 * launched
+        _equal(got_t, want_t)
+        _equal((got_p,), (want_p,))
+    return want_t, want_p
+
+
+@pytest.mark.parametrize("t", [0, 1, 8, 300, 4096, "over"])
+@pytest.mark.parametrize("b", [
+    0, 1, 3, 1_600_000,
+    # (kernel, d): one request more or less than the kernel's tile
+    ("translate_lookup", -1), ("translate_lookup", 1),
+    ("protect_check", -1), ("protect_check", 1)])
+def test_tcam_routes_equal_plain(cuda, b, t):
+    if isinstance(b, tuple):
+        b = ops._tcam_geometry(b[0])[0] + b[1]
+    if t == "over":
+        t = _tcam_over(cuda)
+    rng = np.random.default_rng(b + t)
+    translate, protect, v, pd, nd = _tcam_case(rng, b, t)
+    dev = [to_device(a, torch.int64, cuda) for a in (translate, protect, v)]
+    want_t, want_p = _tcam_run(cuda, *dev, to_device(pd, torch.int32, cuda),
+                               to_device(nd, torch.int32, cuda))
+    if b >= 2048 and t >= 64:  # hits, misses, admits and denials
+        hits = int((want_t[1] != ops.NO_MATCH).sum())
+        assert 0 < hits < b and 0 < int(want_p.sum()) < b
+
+
+@pytest.mark.parametrize("t", [8, 300])
+@pytest.mark.parametrize("offsets", [(1, 1, 1), (1, 2, 3), (3, 1, 2),
+                                     (2, 3, 0), (0, 1, 0)])
+def test_tcam_misaligned_views_equal_plain(cuda, offsets, t):
+    """Each input stream a view 0-3 elements into its storage, on its own:
+    the misaligned ones are read with scalar loads."""
+    rng = np.random.default_rng(sum(offsets) * 10 + t)
+    translate, protect, v, pd, nd = _tcam_case(rng, 100_003, t)
+    vv = _view(v, offsets[1], torch.int64, cuda)
+    assert vv.is_contiguous() and (vv.data_ptr() % 16 != 0) == (
+        offsets[1] % 2 == 1)
+    _tcam_run(cuda, to_device(translate, torch.int64, cuda),
+              to_device(protect, torch.int64, cuda), vv,
+              _view(pd, offsets[0], torch.int32, cuda),
+              _view(nd, offsets[2], torch.int32, cuda))
+
+
+def test_tcam_forced_staged_route_that_does_not_fit_raises(cuda):
+    t = _tcam_over(cuda)
+    assert _tcam_routes(cuda, t) == ["tiled"]
+    rng = np.random.default_rng(4)
+    translate, protect, v, pd, nd = [
+        to_device(a, torch.int64 if a.dtype == np.int64 else torch.int32,
+                  cuda) for a in _tcam_case(rng, 100, t)]
+    before = (dict(ops.LAUNCHES), dict(ops.TCAM_ROUTES))
+    with pytest.raises(RuntimeError, match="translate_lookup"):
+        ops.translate_lookup(v, translate, _route="staged")
+    with pytest.raises(RuntimeError, match="protect_check"):
+        ops.protect_check(pd, v, nd, protect, _route="staged")
+    assert (dict(ops.LAUNCHES), dict(ops.TCAM_ROUTES)) == before
+    # The refused opt-in leaves no error behind for the next launches.
+    _tcam_run(cuda, translate, protect, v, pd, nd)
+    args = lane_inputs_to_device(*_lane_case(rng, 2, 32, 8, 4, 3, 12, 32,
+                                             True), device=cuda)
+    got = ops.lane_replay(*args)
+    torch.cuda.synchronize()
+    _equal(got, lane_replay_plain(*args))
+
+
 def test_lane_replay_kernel_clamps_like_plain(cuda):
     rng = np.random.default_rng(2)
     g, L, S, span, nb, W = 5, 64, 6, 4, 3, 10
@@ -165,7 +300,7 @@ def test_lane_replay_state_over_the_shared_memory_limit(cuda):
     """A lane whose state is one plane column over the card's opt-in
     shared memory takes the global route by itself; one column less, the
     shared-memory route."""
-    limit = ops._lane_smem_limit(cuda)
+    limit = ops._smem_optin_limit(cuda)
     S, span, nb = 64, 16, 8
     fixed = ops.lane_smem_bytes(S, span, nb, 0)
     W = (limit - fixed) // (8 * nb) + 1

@@ -354,3 +354,141 @@ def test_lane_replay_route_argument():
         P.lane_replay(*args, _route="shared")
     assert P.LAUNCHES["lane_replay"] == 0
     assert P.LANE_ROUTES == {"smem": 0, "global": 0}
+
+
+# ------------------------------------------------------------------ #
+# Stages 1-2 on the card: routes and grid (pure functions of the shapes).
+# ------------------------------------------------------------------ #
+# csrc/range_match.cu's geometry (ops._tcam_geometry, pinned on the card by
+# tests/test_torch_cuda.py): tiles of 2,048 requests (translate) and 1,024
+# (protect), 24 bytes of shared memory a decoded row.  The staged route's
+# 9,685 rows fill the H100's opt-in shared memory.
+_TRANSLATE_TILE, _PROTECT_TILE, _TCAM_ROW_BYTES = 2048, 1024, 24
+_STAGED_ROWS = _H100_SMEM // _TCAM_ROW_BYTES
+
+
+@pytest.mark.parametrize("t,route", [
+    (0, "staged"),
+    (1, "staged"),  # the main cell's protect table
+    (8, "staged"),  # the main cell's translate table
+    (4096, "staged"),  # chip_smoke.py's large-table cases
+    (_STAGED_ROWS, "staged"),
+    (_STAGED_ROWS + 1, "tiled"),
+    ((1 << 20) - 1, "tiled"),  # the most rows LPM keys allow
+])
+def test_tcam_route_on_recorded_shapes(t, route):
+    assert P._tcam_route(t, _H100_SMEM, _TCAM_ROW_BYTES) == route
+
+
+# Blocks an SM as an H100 80GB HBM3 reports them through rm_blocks_per_sm:
+# translate 3 of 512 threads on the main path's table (40 registers), 2
+# with a staged table of 4,096 rows (96 KB of shared memory each); protect
+# 2 of 1,024 threads.
+@pytest.mark.parametrize("b,per_sm,tile,grid", [
+    (1_600_000, 3, _TRANSLATE_TILE, 396),  # the main cell: 782 tiles
+    (1_600_000, 2, _TRANSLATE_TILE, 264),  # T 4,096 staged
+    (1_600_000, 2, _PROTECT_TILE, 264),  # the main cell: 1,563 tiles
+    (1, 3, _TRANSLATE_TILE, 1),
+    (2048, 3, _TRANSLATE_TILE, 1),  # one whole tile
+    (2049, 3, _TRANSLATE_TILE, 2),
+    ((1 << 31) - 1, 3, _TRANSLATE_TILE, 396),  # B at the int32 limit
+])
+def test_tcam_grid(b, per_sm, tile, grid):
+    assert P._tcam_grid(b, 132, per_sm, tile) == grid
+
+
+def test_tcam_route_argument():
+    """On CPU tensors the route is ignored (the plain version runs), an
+    unknown one is refused, and no launch or route is counted."""
+    tbl = _toy_translate_table()
+    v = torch.from_numpy((1 << 40) + np.arange(50, dtype=np.int64) * (1 << 33))
+    P.reset_launches()
+    want = P.translate_lookup(v, torch.from_numpy(tbl))
+    ptbl = torch.tensor([(1, 1 << 40, 36, 3)], dtype=torch.int64)
+    ones = torch.ones(50, dtype=torch.int32)
+    want_a = P.protect_check(ones, v, ones, ptbl)
+    for route in ("staged", "tiled"):
+        for g, w in zip(P.translate_lookup(v, torch.from_numpy(tbl),
+                                           _route=route), want):
+            assert torch.equal(g, w)
+        assert torch.equal(P.protect_check(ones, v, ones, ptbl, _route=route),
+                           want_a)
+    with pytest.raises(ValueError, match="_route"):
+        P.translate_lookup(v, torch.from_numpy(tbl), _route="smem")
+    with pytest.raises(ValueError, match="_route"):
+        P.protect_check(ones, v, ones, ptbl, _route="global")
+    assert P.LAUNCHES["translate_lookup"] == P.LAUNCHES["protect_check"] == 0
+    assert P.TCAM_ROUTES == {"staged": 0, "tiled": 0}
+
+
+def _large_tables(rng, t, vpool):
+    """``t`` rows around addresses of ``vpool``: every log2 in [0, 63] and
+    some outside it, duplicated rows (LPM ties), random pdids and perms."""
+    lg = rng.integers(0, 64, t)
+    lg[:64] = np.arange(64)
+    lg[64:68] = [-7, 64, 2047, 4096]  # clamped shifts, wrapping keys
+    base = vpool[rng.integers(0, len(vpool), t)]
+    # Short prefixes only over negative addresses, so that small positive
+    # (unmapped) vaddrs can miss.
+    base = np.where(np.clip(lg, 0, 63) >= 47, -np.abs(base) - 1, base)
+    translate = np.stack([base, lg, rng.integers(0, 8, t),
+                          np.zeros(t, np.int64)], 1).astype(np.int64)
+    translate[t // 2:t // 2 + 4] = translate[70:74]  # ties
+    protect = np.stack([rng.integers(1, 3, t), base, lg,
+                        rng.integers(0, 4, t)], 1).astype(np.int64)
+    return translate, protect
+
+
+@pytest.mark.parametrize("t", [257, 300, 1100])
+def test_stage12_plain_matches_pallas_past_256_rows(t):
+    """Tables over 256 rows (the first port's shared-memory tile, and more
+    than two of the TPU wrapper's 128-row pads), a quarter of the vaddrs
+    unmapped.  Held to the Pallas kernels alone: the NumPy oracles shift
+    by log2 outside [0, 63] as NumPy does, not as the kernels do."""
+    rng = np.random.default_rng(t)
+    vpool = rng.integers(-(1 << 62), 1 << 62, 97)
+    translate, protect = _large_tables(rng, t, vpool)
+    n = 700
+    v = vpool[rng.integers(0, len(vpool), n)] ^ (
+        np.int64(1) << rng.integers(0, 64, n).astype(np.int64))
+    v = np.where(rng.random(n) < 0.25, rng.integers(0, 1 << 47, n), v)
+    blade, row = _translate(v, translate)
+    kb, ki = K.translate_lookup(v, translate)
+    _same(blade, kb)
+    _same(row, ki)
+    assert 0 < (row != NO_MATCH).sum() < n
+    assert len(np.unique(row)) > 20
+    pd = rng.integers(1, 3, n).astype(np.int32)
+    need = rng.integers(0, 4, n).astype(np.int32)
+    got = _protect(pd, v, need, protect)
+    _same(got, K.protect_check(pd, v, need, protect))
+    assert got.any() and not got.all()
+
+
+@pytest.mark.parametrize("offsets", [(1, 1, 1), (1, 2, 3), (3, 0, 2)])
+def test_stage12_plain_on_misaligned_views(offsets):
+    """Contiguous views that start 1-3 elements into their storage (each
+    stream on its own) give what the Pallas kernels give on copies."""
+    rng = np.random.default_rng(sum(offsets))
+    vpool = rng.integers(-(1 << 62), 1 << 62, 97)
+    translate, protect = _large_tables(rng, 300, vpool)
+    n = 2051
+    v = vpool[rng.integers(0, len(vpool), n)] ^ (
+        np.int64(1) << rng.integers(0, 64, n).astype(np.int64))
+    pd = rng.integers(1, 3, n).astype(np.int32)
+    need = rng.integers(0, 4, n).astype(np.int32)
+
+    def view(a, k):
+        t = torch.from_numpy(np.concatenate([np.zeros(k, a.dtype), a]))[k:]
+        assert t.is_contiguous() and t.storage_offset() == k
+        return t
+
+    vp, vv, vn = view(pd, offsets[0]), view(v, offsets[1]), view(need,
+                                                               offsets[2])
+    tt, tp = tables_to_device(translate, protect, CPU)
+    blade, row = P.translate_lookup(vv, tt)
+    kb, ki = K.translate_lookup(v, translate)
+    _same(blade.numpy(), kb)
+    _same(row.numpy(), ki)
+    _same(P.protect_check(vp, vv, vn, tp).numpy(),
+          K.protect_check(pd, v, need, protect))
