@@ -84,6 +84,35 @@ exits nonzero):
               run recorded in phase 4.  Phases 4, 6 and 7 report
               ops.LANE_ROUTES, the lane_replay launches per route, and 6
               and 7 ops.TCAM_ROUTES, the stage-1/2 launches per route.
+8. systems  — the fig. 6 systems at the §7 rack on GC (2,000 accesses
+              per thread, 160,000) and TF (400, 32,000): gam and fastswap
+              replay batched on the host (no switch, no kernel), held
+              bytewise to their scalar oracles (stats, runtime_us,
+              total_thread_us, the latency breakdown, the canonical
+              events), with their vectorized and walked accesses and
+              BASELINE_PHASES times; mind on the CUDA engine, held to its
+              oracle; the three systems' runtime_us side by side.
+9. regimes  — on the CUDA engine against the port's scalar oracle, each
+              with a Telemetry on both racks (accesses per thread in
+              REGIME_DEPTH): epochs (M_A, 1,500; 10 ms epochs);
+              cache_pressure (uniform over 24,000 pages, read 0.5,
+              sharing 0.2, 1,000; a 1,200-page cache a blade, splitting
+              off); sharded (the cross-shard conflict trace, 1,000, on
+              1, 2 and 4 switches against the single-switch oracle:
+              stats and coherence events equal, total_thread_us longer
+              by exactly the cross-shard hops); rebalance (the same
+              trace, 1,000, 2 switches of 4,096 slots, 2.5 ms epochs,
+              the rebalancer at 1.5: reports equal, migrations > 0);
+              chaos (M_A, 1,000, durable write-backs, 3 seeded blade
+              kill/restore cycles on a lossy fabric: fault reports
+              equal, retries > 0, check_invariants clean on both
+              streams); switch_kill (the sharded trace, 1,000, on 4
+              switches, switch 1 killed and restored half-way; no
+              convergence to the uninterrupted run is asserted).
+              Phases 8 and 9 report, per cell, the walls (CUDA and
+              scalar), phase_times, the event count and ops.LAUNCHES,
+              ops.TCAM_ROUTES and ops.LANE_ROUTES; every mind cell must
+              launch all three replay kernels.
 
 Every time taken "cold" (time_ms_cold) has the L2 flushed before each call
 and left clean: 64 MB written, then 128 MB read, neither timed.
@@ -120,6 +149,43 @@ SRC = ROOT / "src"
 RACK = dict(num_compute_blades=8, threads_per_blade=10)
 PARITY = (("M_A", 2000), ("GC", 2000), ("TF", 1000))
 MAIN = ("M_A", 20000)
+# Phase systems: the fig. 6 systems (mind, gam, fastswap) on two traces
+# at the §7 rack: (trace, accesses per thread).  TF is cut from 2,000 so
+# that the scalar oracles fit the phases' time: mind's oracle on TF, with
+# its telemetry, took 140.9 s at 2,000 on an H100's host.
+SYSTEMS_CELLS = (("GC", 2000), ("TF", 400))
+# Phase regimes: each cell's accesses per thread.  Traffic comes from the
+# repo's benches: cache_pressure, sharded and rebalance are the cells of
+# benchmarks/dataplane_bench.py at 8 blades, chaos that of
+# benchmarks/chaos_bench.py on the §7 rack.  All but epochs are cut from
+# 3,000 (cache_pressure), 2,500 (sharded, switch_kill) and 2,000
+# (rebalance, chaos), again for the scalar oracles' time.
+REGIME_DEPTH = dict(epochs=1500, cache_pressure=1000, sharded=1000,
+                    rebalance=1000, chaos=1000, switch_kill=1000)
+# cache_pressure: uniform traffic over 24,000 pages (read 0.5, sharing
+# 0.2, seed 42).  The bench sizes each blade's cache at a third of the
+# blade's share of them (4 blades); at 8 blades that share is smaller,
+# invalidations keep the caches below a third of it and nothing is
+# evicted, so here each cache holds a sixth (1,200 pages).
+CACHE_WORKING_SET = 24_000
+CACHE_SHARE = 6
+# The cross-shard conflict trace of the sharded, rebalance and
+# switch_kill cells (4 shards of blocks, 2 blocks a shard).
+XS_TRACE = dict(num_shards=4, blocks_per_shard=2, conflict_frac=0.5,
+                write_frac=0.3, seed=42)
+# rebalance: 2 switches of 4,096 directory slots, 2.5 ms epochs, the
+# rebalancer at threshold 1.5.
+REBALANCE = dict(num_shards=2, shard_slot_budgets=4096, epoch_us=2500.0,
+                 rebalance_threshold=1.5, splitting_enabled=False)
+# chaos: 3 seeded blade kill/restore cycles, durable write-backs, and the
+# lossy fabric of benchmarks/chaos_bench.py (its default seed).
+FABRIC = dict(fabric_loss_prob=0.25, fabric_timeout_us=12.0,
+              fabric_backoff=2.0, fabric_timeout_cap_us=96.0,
+              fabric_max_retries=3)
+CHAOS_SEED = 2107
+CHAOS_CYCLES = 3
+# The flight recorder's ring, large enough to hold a whole cell's stream.
+TELEMETRY_CAPACITY = 1 << 22
 STAT_FIELDS = (
     "accesses", "local_hits", "remote_fetches", "invalidations",
     "invalidated_pages", "false_invalidated_pages", "flushed_pages",
@@ -1360,6 +1426,328 @@ def phase_main(device, scale: float = 1.0):
                 lane_routes=lane_routes, tcam_routes=tcam_routes)
 
 
+# --------------------------------------------------------------------- #
+# Phases systems and regimes: the replay's other systems and regimes at
+# the §7 rack width, each cell held to the port's scalar oracle.
+# --------------------------------------------------------------------- #
+def telemetry():
+    """A Telemetry whose ring holds every event of a cell's replay."""
+    from repro_torch.telemetry import Telemetry
+
+    return Telemetry(capacity=TELEMETRY_CAPACITY)
+
+
+def event_keys(tel, drop=()):
+    """The canonical event keys of a whole stream (none dropped by the
+    ring), without the kinds in ``drop``."""
+    from repro_torch.telemetry import canonical
+
+    if tel.recorder.dropped:
+        raise AssertionError(f"the flight recorder dropped "
+                             f"{tel.recorder.dropped} events")
+    return [e.key() for e in canonical(tel.recorder.events)
+            if e.kind not in drop]
+
+
+def held_to_oracle(name, rb, rs, exact_floats: bool = False) -> int:
+    """The reference's bar for a batched replay against the scalar oracle:
+    stats exact, runtimes to rtol 1e-6 (bytewise for the host-only
+    baselines, with the latency breakdown), canonical events equal, and
+    the fault and rebalance reports equal.  Returns the event count."""
+    import numpy as np
+
+    if dataclasses.asdict(rb.stats) != dataclasses.asdict(rs.stats):
+        raise AssertionError(f"{name}: stats {rb.stats} != scalar {rs.stats}")
+    if exact_floats:
+        for f in ("runtime_us", "total_thread_us", "latency_breakdown_us"):
+            if getattr(rb, f) != getattr(rs, f):
+                raise AssertionError(f"{name}: {f} {getattr(rb, f)} != "
+                                     f"scalar {getattr(rs, f)}")
+    np.testing.assert_allclose(rb.runtime_us, rs.runtime_us, rtol=1e-6,
+                               err_msg=name)
+    np.testing.assert_allclose(rb.total_thread_us, rs.total_thread_us,
+                               rtol=1e-6, err_msg=name)
+    if rb.fault_reports != rs.fault_reports:
+        raise AssertionError(f"{name}: fault reports differ")
+    if rb.rebalance_reports != rs.rebalance_reports:
+        raise AssertionError(f"{name}: rebalance reports differ")
+    keys = event_keys(rb.telemetry)
+    if keys != event_keys(rs.telemetry):
+        raise AssertionError(f"{name}: event streams differ")
+    return len(keys)
+
+
+def cuda_replay(name, make, trace, device):
+    """Run ``make()``'s rack on ``trace`` with the launch counts set to 0
+    just before and read just after; a mind rack on the card must launch
+    every replay kernel."""
+    from repro_torch.kernels import ops
+
+    rack = make()
+    ops.reset_launches()
+    t = time.perf_counter()
+    result = rack.run(trace)
+    sync(device)
+    wall = time.perf_counter() - t
+    row = dict(cuda_s=wall,
+               launches={k: ops.LAUNCHES[k] for k in REPLAY_KERNELS},
+               lane_routes=dict(ops.LANE_ROUTES),
+               tcam_routes=dict(ops.TCAM_ROUTES))
+    if device.type == "cuda" and not all(row["launches"].values()):
+        raise AssertionError(f"{name}: a replay kernel was not launched "
+                             f"{row['launches']}")
+    return result, row
+
+
+def scalar_replay(make, trace):
+    """``make()``'s rack on ``trace``, and the wall it took."""
+    rack = make()
+    t = time.perf_counter()
+    return rack.run(trace), time.perf_counter() - t
+
+
+def mind_cell(name, trace, device, cls=None, plan=(), **kw):
+    """A mind cell: the CUDA engine and the scalar oracle on one rack
+    configuration (``plan``: fault events scheduled on both)."""
+    from repro_torch.core.emulator import DisaggregatedRack
+
+    cls = cls or DisaggregatedRack
+
+    def make(engine):
+        def build():
+            opts = {"device": str(device)} if engine == "batched" else {}
+            rack = cls(system="mind", engine=engine, engine_options=opts,
+                       telemetry=telemetry(), **{**RACK, **kw})
+            if plan:
+                rack.schedule_fault_plan(list(plan))
+            return rack
+        return build
+
+    rb, row = cuda_replay(name, make("batched"), trace, device)
+    rs, scalar_s = scalar_replay(make("scalar"), trace)
+    row.update(events=held_to_oracle(name, rb, rs), scalar_s=scalar_s,
+               accesses=len(trace), runtime_us=rb.runtime_us,
+               total_thread_us=rb.total_thread_us,
+               epochs=len(rb.epoch_reports), phase_times=rb.phase_times)
+    return rb, rs, row
+
+
+def phase_systems(device, scale: float = 1.0):
+    """Phase systems: the fig. 6 systems on the GC and TF traces at the §7
+    rack.  gam and fastswap replay batched on the host (they have no
+    switch, so no kernel), held bytewise to their scalar oracles; mind
+    replays on the CUDA engine, held to its oracle."""
+    from repro_torch.core import traces as T
+    from repro_torch.core.emulator import DisaggregatedRack
+    from repro_torch.dataplane import BASELINE_PHASES
+    from repro_torch.kernels import ops
+
+    threads = RACK["num_compute_blades"] * RACK["threads_per_blade"]
+    cells, side_by_side = [], {}
+    for wl, apt in SYSTEMS_CELLS:
+        apt = max(20, int(apt * scale))
+        trace = T.WORKLOADS[wl](num_threads=threads, accesses_per_thread=apt)
+        runtimes = {}
+        for system in ("gam", "fastswap"):
+            name = f"{system}/{wl}"
+
+            def make(engine, system=system):
+                return DisaggregatedRack(system=system, engine=engine,
+                                         telemetry=telemetry(), **RACK)
+
+            eng = make("batched").model.make_batched_engine()
+            ops.reset_launches()
+            t = time.perf_counter()
+            rb = eng.run(trace)
+            batched_s = time.perf_counter() - t
+            if any(ops.LAUNCHES.values()):
+                raise AssertionError(f"{name} launched a kernel: "
+                                     f"{ops.LAUNCHES}")
+            rs, scalar_s = scalar_replay(lambda: make("scalar"), trace)
+            events = held_to_oracle(name, rb, rs, exact_floats=True)
+            if set(rb.phase_times) != set(BASELINE_PHASES):
+                raise AssertionError(f"{name}: phases {sorted(rb.phase_times)}")
+            if eng.vectorized_accesses + eng.walked_accesses != len(trace):
+                raise AssertionError(f"{name}: accesses unaccounted for")
+            runtimes[system] = rb.runtime_us
+            cells.append(dict(
+                cell=name, system=system, workload=wl, accesses=len(trace),
+                batched_s=batched_s, scalar_s=scalar_s, events=events,
+                launches=dict(ops.LAUNCHES),
+                vectorized_accesses=eng.vectorized_accesses,
+                walked_accesses=eng.walked_accesses,
+                runtime_us=rb.runtime_us, total_thread_us=rb.total_thread_us,
+                phase_times={k: rb.phase_times[k] for k in BASELINE_PHASES}))
+        rb, _, row = mind_cell(f"mind/{wl}", trace, device)
+        runtimes["mind"] = rb.runtime_us
+        cells.append(dict(cell=f"mind/{wl}", system="mind", workload=wl,
+                          **row))
+        side_by_side[wl] = runtimes
+    return dict(cells=cells, runtime_us=side_by_side)
+
+
+def chaos_schedule(rng, n: int, blades, cycles: int):
+    """``cycles`` seeded kill -> restore pairs of one memory blade at a
+    time, at distinct sorted access indexes (as
+    benchmarks/chaos_bench.py draws them)."""
+    import numpy as np
+
+    from repro_torch.core import faults as flt
+
+    idxs = np.sort(rng.choice(np.arange(1, n - 1), size=2 * cycles,
+                              replace=False))
+    events = []
+    for c in range(cycles):
+        b = int(rng.choice(blades))
+        events.append(flt.FaultEvent(int(idxs[2 * c]), flt.BLADE_KILL, b))
+        events.append(flt.FaultEvent(int(idxs[2 * c + 1]),
+                                     flt.BLADE_RESTORE, b))
+    return events
+
+
+def phase_regimes(device, scale: float = 1.0):
+    """Phase regimes: epochs, blade-cache pressure, sharded racks, the
+    rebalancer, blade faults on a lossy fabric and a switch kill, each on
+    the CUDA engine against the port's scalar oracle at the §7 rack."""
+    import numpy as np
+
+    from repro_torch.core import faults as flt
+    from repro_torch.core import traces as T
+    from repro_torch.core.emulator import DisaggregatedRack, ShardedRack
+    from repro_torch.core.types import PAGE_SIZE, NetworkConstants
+    from repro_torch.telemetry import check_invariants
+    from repro_torch.telemetry import events as tev
+
+    threads = RACK["num_compute_blades"] * RACK["threads_per_blade"]
+    depth = {k: max(20, int(v * scale)) for k, v in REGIME_DEPTH.items()}
+    cells = []
+
+    def cell(name, row, **extra):
+        cells.append(dict(cell=name, accesses_per_thread=depth[name], **row,
+                          **extra))
+
+    # epochs: Bounded Splitting's 10 ms epochs at rack defaults.
+    trace = T.WORKLOADS["M_A"](num_threads=threads,
+                               accesses_per_thread=depth["epochs"])
+    rb, _, row = mind_cell("epochs", trace, device)
+    if not rb.epoch_reports:
+        raise AssertionError("epochs: no epoch boundary was reached")
+    cell("epochs", row, splits=rb.stats.splits, merges=rb.stats.merges)
+
+    # cache_pressure: each blade's cache a sixth of its share of the pages.
+    ws = CACHE_WORKING_SET
+    trace = T.uniform_trace(num_threads=threads, read_ratio=0.5,
+                            sharing_ratio=0.2,
+                            accesses_per_thread=depth["cache_pressure"],
+                            working_set_pages=ws, seed=42)
+    shared = int(ws * 0.2)
+    cache_pages = max(64, (shared + (ws - shared)
+                           // RACK["num_compute_blades"]) // CACHE_SHARE)
+    rb, _, row = mind_cell("cache_pressure", trace, device,
+                           cache_bytes_per_blade=cache_pages * PAGE_SIZE,
+                           splitting_enabled=False)
+    if not (rb.stats.evicted_dirty and rb.stats.evicted_clean):
+        raise AssertionError("cache_pressure: no blade-cache eviction")
+    cell("cache_pressure", row, cache_pages_per_blade=cache_pages,
+         evicted_dirty=rb.stats.evicted_dirty,
+         evicted_clean=rb.stats.evicted_clean)
+
+    # sharded: 1, 2 and 4 switches against the single-switch oracle.
+    xs = T.sharded_conflict_trace(num_threads=threads,
+                                  accesses_per_thread=depth["sharded"],
+                                  **XS_TRACE)
+    kw = dict(splitting_enabled=False)
+    oracle, scalar_s = scalar_replay(
+        lambda: DisaggregatedRack(system="mind", engine="scalar",
+                                  telemetry=telemetry(), **RACK, **kw), xs)
+    hop = NetworkConstants().switch_to_switch_us
+    want = event_keys(oracle.telemetry, drop=(tev.XS_HOP,))
+    shards = []
+    for nsh in (1, 2, 4):
+        name = f"sharded/{nsh}"
+        rb, row = cuda_replay(
+            name, lambda nsh=nsh: ShardedRack(
+                num_shards=nsh, system="mind", engine="batched",
+                engine_options={"device": str(device)},
+                telemetry=telemetry(), **RACK, **kw), xs, device)
+        if dataclasses.asdict(rb.stats) != dataclasses.asdict(oracle.stats):
+            raise AssertionError(f"{name}: stats differ from the oracle")
+        hops = rb.cross_shard_accesses * hop
+        np.testing.assert_allclose(rb.total_thread_us
+                                   - oracle.total_thread_us, hops,
+                                   rtol=1e-9, err_msg=name)
+        got = event_keys(rb.telemetry, drop=(tev.XS_HOP,))
+        if got != want:
+            raise AssertionError(f"{name}: coherence events differ from "
+                                 f"the oracle's")
+        n_hops = rb.telemetry.recorder.counts_by_kind().get(tev.XS_HOP, 0)
+        if n_hops != rb.cross_shard_accesses or (nsh > 1 and not n_hops):
+            raise AssertionError(f"{name}: {n_hops} hop events, "
+                                 f"{rb.cross_shard_accesses} cross-shard")
+        shards.append(dict(num_shards=nsh, **row, events=len(got) + n_hops,
+                           runtime_us=rb.runtime_us,
+                           total_thread_us=rb.total_thread_us,
+                           cross_shard_accesses=rb.cross_shard_accesses,
+                           hop_us_total=hops,
+                           shard_accesses=rb.shard_accesses,
+                           phase_times=rb.phase_times))
+    cell("sharded", dict(accesses=len(xs), scalar_s=scalar_s,
+                         oracle_runtime_us=oracle.runtime_us,
+                         oracle_total_thread_us=oracle.total_thread_us,
+                         shards=shards))
+
+    # rebalance: the skewed XS cell on 2 budgeted shards, rebalancer live.
+    trace = T.sharded_conflict_trace(
+        num_threads=threads, accesses_per_thread=depth["rebalance"],
+        **XS_TRACE)
+    rb, _, row = mind_cell("rebalance", trace, device, cls=ShardedRack,
+                           **REBALANCE)
+    moves = sum(len(r["moves"]) for r in rb.rebalance_reports)
+    if not moves:
+        raise AssertionError("rebalance: the rebalancer never migrated")
+    cell("rebalance", row, migrations=moves,
+         migration_us=sum(r["migration_us"] for r in rb.rebalance_reports),
+         shard_accesses=rb.shard_accesses)
+
+    # chaos: seeded blade kills and restores on a lossy fabric.
+    trace = T.WORKLOADS["M_A"](num_threads=threads,
+                               accesses_per_thread=depth["chaos"])
+    probe = DisaggregatedRack(system="mind", **RACK)
+    plan = chaos_schedule(np.random.default_rng(CHAOS_SEED), len(trace),
+                          sorted(probe.allocator.blades), CHAOS_CYCLES)
+    rb, rs, row = mind_cell(
+        "chaos", trace, device, plan=plan, durable_writebacks=True,
+        constants=NetworkConstants(fabric_seed=CHAOS_SEED, **FABRIC))
+    retries = rb.telemetry.metrics.total("fabric_retries_total")
+    if not retries or len(rb.fault_reports) != 2 * CHAOS_CYCLES:
+        raise AssertionError(f"chaos: {retries} retries, "
+                             f"{len(rb.fault_reports)} faults")
+    t = time.perf_counter()
+    for side, res in (("cuda", rb), ("scalar", rs)):
+        bad = check_invariants(res.telemetry)
+        if bad:
+            raise AssertionError(f"chaos/{side}: {len(bad)} invariant "
+                                 f"violations, first {bad[0]}")
+    cell("chaos", row, retries=int(retries),
+         timeouts=int(rb.telemetry.metrics.total("fabric_timeouts_total")),
+         retry_us=rb.latency_breakdown_us["retry"],
+         invariants_s=time.perf_counter() - t,
+         fault_reports=[dataclasses.asdict(f) for f in rb.fault_reports])
+
+    # switch_kill: one of 4 switches killed and restored mid-trace.
+    xs = T.sharded_conflict_trace(num_threads=threads,
+                                  accesses_per_thread=depth["switch_kill"],
+                                  **XS_TRACE)
+    kill = flt.FaultEvent(len(xs) // 2, flt.SWITCH_KILL, 1)
+    rb, _, row = mind_cell("switch_kill", xs, device, cls=ShardedRack,
+                           plan=(kill,), num_shards=4, **kw)
+    if [f.kind for f in rb.fault_reports] != [flt.SWITCH_KILL]:
+        raise AssertionError(f"switch_kill: {rb.fault_reports}")
+    cell("switch_kill", row,
+         entries_restored=rb.fault_reports[0].entries_restored)
+    return dict(cells=cells)
+
+
 def tcam_times(root: Path) -> dict:
     """Cold ms of the TCAM kernels of the checkout at ``root`` (its own
     ``src``, built there) on the main path's recorded calls: translate at
@@ -1517,6 +1905,11 @@ def main() -> int:
         raise AssertionError(f"the main run launched lane_replay "
                              f"{main_run['launches']['lane_replay']} times, "
                              f"its recorded run had {chunks} chunks")
+    for phase in (phase_systems, phase_regimes):
+        t = time.perf_counter()
+        out = phase(device)
+        emit({"phase": phase.__name__[len("phase_"):],
+              "seconds": time.perf_counter() - t, **out})
 
     launches = {**main_run["launches"], **bench_launches,
                 "paged_attention": serve["launches"]["paged_attention"]}

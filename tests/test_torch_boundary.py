@@ -117,9 +117,23 @@ def test_paged_pool_refuses_without_cuda(monkeypatch):
     assert pool.alloc_page(session=1) in range(4)
 
 
-def test_unported_systems_raise():
+@pytest.mark.parametrize("system", ["mind", "mind-pso", "mind-pso+", "gam",
+                                    "fastswap"])
+def test_every_system_replays_on_both_engines(system):
+    from repro_torch.core import traces as T
     from repro_torch.core.emulator import DisaggregatedRack
+    from repro_torch.core.systems import SYSTEMS
 
-    for system in ("gam", "fastswap"):
-        with pytest.raises(ValueError, match="baselines slice"):
-            DisaggregatedRack(system=system, num_compute_blades=1)
+    assert system in SYSTEMS and len(SYSTEMS) == 5
+    trace = T.uniform_trace(num_threads=4, read_ratio=0.5, sharing_ratio=0.5,
+                            accesses_per_thread=40, seed=3)
+    # ``device`` is an option of the mind engine only.
+    options = {"device": "cpu"} if system.startswith("mind") else {}
+    results = [DisaggregatedRack(system=system, num_compute_blades=2,
+                                 threads_per_blade=2, engine=engine,
+                                 engine_options=options).run(trace)
+               for engine in ("scalar", "batched")]
+    assert [r.engine for r in results] == ["scalar", "batched"]
+    assert results[0].stats == results[1].stats
+    assert results[0].stats.accesses == 4 * 40
+    assert results[0].runtime_us == results[1].runtime_us

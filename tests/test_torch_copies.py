@@ -26,7 +26,11 @@ COPIES = [
     # make_batched_engine imports repro_torch.dataplane.engine's
     # BatchedDataPlane: the rewrite alone makes that import line.
     "core/systems/mind.py",
-    "telemetry/__init__.py", "telemetry/events.py", "telemetry/invariants.py",
+    # The baselines replay on the host in both packages.
+    "core/systems/__init__.py", "core/systems/gam.py",
+    "core/systems/fastswap.py", "dataplane/baselines.py",
+    "telemetry/__init__.py", "telemetry/events.py", "telemetry/explain.py",
+    "telemetry/exporters.py", "telemetry/invariants.py",
     "telemetry/metrics.py", "telemetry/recorder.py",
     "dataplane/scheduler.py", "dataplane/tables.py",
     # get_config's importlib string becomes repro_torch.configs.<arch>.
@@ -42,12 +46,11 @@ UNTAGGED = re.compile(r" \([A-Z]{2,5} \d+\)| of [A-Z]{2} \d+(?=\.)")
 
 # Trimmed on purpose, each with the names it must (not) carry.
 TRIMMED = {
-    # gam and fastswap come with the baselines slice of the port.
-    "core/systems/__init__.py": (("MindModel", "make_model", "SYSTEMS"),
-                                 ("GamModel", "FastswapModel", "gam_kind")),
-    # baselines.py is not ported yet.
-    "dataplane/__init__.py": (("BatchedDataPlane", "build_wave_schedule"),
-                              ("baselines", "GamBatchedReplay")),
+    # The port's own docstring (CUDA kernels, not Pallas and XLA); the
+    # same names as the reference's.
+    "dataplane/__init__.py": (("BatchedDataPlane", "build_wave_schedule",
+                               "BASELINE_PHASES", "GamBatchedReplay",
+                               "FastswapBatchedReplay"), ("jax", "jnp")),
     # The dense block only; MoE, xLSTM, Mamba2 and cross-attention blocks
     # come with their families.
     "models/blocks.py": (("dense_block_params", "dense_block_prefill",

@@ -8,20 +8,36 @@ equal to the JAX engine's; against the scalar oracle the bar is the
 reference's own (stats exact, runtimes to rtol 1e-6).
 
 The regimes with host pre-passes (epochs, capacity evictions, downgrades,
-sharding) are in ``test_torch_dataplane_regimes.py``.
+sharding) are in ``test_torch_dataplane_regimes.py``; the baselines,
+telemetry, faults and rebalancer in ``test_torch_baselines.py``,
+``test_torch_telemetry.py``, ``test_torch_faults.py`` and
+``test_torch_rebalance.py``, all through :func:`run_three`.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 
+from repro.core import faults as JF
 from repro.core import traces as JT
+from repro.core import types as JTY
 from repro.core.emulator import DisaggregatedRack as JaxRack
 from repro.core.emulator import ShardedRack as JaxShardedRack
+from repro.telemetry import Telemetry as JaxTelemetry
 
 from repro_torch.convert import trace_from_numpy
+from repro_torch.core import faults as PF
 from repro_torch.core import traces as PT
+from repro_torch.core import types as PTY
 from repro_torch.core.emulator import DisaggregatedRack as PortRack
 from repro_torch.core.emulator import ShardedRack as PortShardedRack
+from repro_torch.telemetry import Telemetry as PortTelemetry
+from repro_torch.telemetry import canonical
+from repro_torch.telemetry.explain import (
+    assert_event_parity,
+    assert_metric_parity,
+)
 
 STAT_FIELDS = (
     "accesses", "local_hits", "remote_fetches", "invalidations",
@@ -47,16 +63,43 @@ def to_port(trace):
                             trace.shared_bytes)
 
 
+def event_rows(tel):
+    """A telemetry stream as plain tuples (key and charged microseconds),
+    comparable across the two packages' Event classes."""
+    return [(e.key(), e.us) for e in canonical(tel.recorder.events)]
+
+
+def assert_telemetry_bytewise(tp, tj):
+    """The port's batched stream and registry equal the JAX engine's:
+    every event, every counter and gauge (the batched-only rollback
+    counter too) and every histogram's bins, count and sum."""
+    assert event_rows(tp) == event_rows(tj)
+    assert tp.metrics._counters == tj.metrics._counters
+    assert tp.metrics._gauges == tj.metrics._gauges
+    assert set(tp.metrics._hists) == set(tj.metrics._hists)
+    for k, h in tp.metrics._hists.items():
+        other = tj.metrics._hists[k]
+        assert np.array_equal(h.counts, other.counts), k
+        assert (h.count, h.total) == (other.count, other.total), k
+
+
+def fault_rows(result):
+    return [dataclasses.asdict(f) for f in result.fault_reports]
+
+
 def assert_bytewise(rp, rj):
     """Every result field the engines share, compared exactly."""
-    for f in STAT_FIELDS:
-        assert getattr(rp.stats, f) == getattr(rj.stats, f), f
+    assert dataclasses.asdict(rp.stats) == dataclasses.asdict(rj.stats)
     assert rp.runtime_us == rj.runtime_us
     assert rp.total_thread_us == rj.total_thread_us
     assert rp.latency_breakdown_us == rj.latency_breakdown_us
     assert rp.transition_latencies == rj.transition_latencies
     assert rp.directory_timeline == rj.directory_timeline
     assert len(rp.epoch_reports) == len(rj.epoch_reports)
+    assert (rp.shard_accesses, rp.cross_shard_accesses) == (
+        rj.shard_accesses, rj.cross_shard_accesses)
+    assert rp.rebalance_reports == rj.rebalance_reports
+    assert fault_rows(rp) == fault_rows(rj)
     assert rp.engine == rj.engine == "batched"
 
 
@@ -69,26 +112,56 @@ def assert_oracle(rp, rs):
     for k, v in rs.latency_breakdown_us.items():
         np.testing.assert_allclose(rp.latency_breakdown_us[k], v, rtol=1e-6,
                                    err_msg=k)
+    assert rp.rebalance_reports == rs.rebalance_reports
+    assert rp.fault_reports == rs.fault_reports
 
 
-def run_three(trace, engine_options=None, sharded=False, **kw):
+def run_three(trace, engine_options=None, sharded=False, telemetry=False,
+              plan=(), constants=None, **kw):
     """(port batched on the CPU, JAX batched, port scalar) on one trace,
     checked against each other; also returns the directory's capacity
-    eviction count, equal in all three."""
+    eviction count, equal in all three.
+
+    ``telemetry`` attaches a fresh Telemetry of the rack's own package to
+    each rack (events and metrics: bytewise port == JAX, and the
+    reference's parity bar port batched == port scalar); ``plan`` is a
+    fault schedule of ``(index, kind, target)`` rows and ``constants``
+    the keyword arguments of a NetworkConstants (the lossy fabric), each
+    built from the rack's own package.  Fault and rebalance reports are
+    held equal in all three.  The mind engine replays on the CPU through
+    ``engine_options["device"]``; the baselines take no such option.
+    """
     kw.setdefault("num_compute_blades", 2)
     kw.setdefault("threads_per_blade", 2)
+    kw.setdefault("system", "mind")
     opts = dict(engine_options or {})
+    port_opts = ({**opts, "device": "cpu"} if kw["system"].startswith("mind")
+                 else opts)
     jcls, pcls = ((JaxShardedRack, PortShardedRack) if sharded
                   else (JaxRack, PortRack))
-    racks = (pcls(engine="batched", engine_options={**opts, "device": "cpu"},
-                  **kw),
-             jcls(engine="batched", engine_options=opts, **kw),
-             pcls(engine="scalar", **kw))
+
+    def build(cls, flt, types, tel, **extra):
+        if constants is not None:
+            extra["constants"] = types.NetworkConstants(**constants)
+        rack = cls(telemetry=tel() if telemetry else None, **extra, **kw)
+        if plan:
+            rack.schedule_fault_plan([flt.FaultEvent(*row) for row in plan])
+        return rack
+
+    racks = (build(pcls, PF, PTY, PortTelemetry, engine="batched",
+                   engine_options=port_opts),
+             build(jcls, JF, JTY, JaxTelemetry, engine="batched",
+                   engine_options=opts),
+             build(pcls, PF, PTY, PortTelemetry, engine="scalar"))
     ptrace = to_port(trace)
     rp, rj, rs = (r.run(t) for r, t in zip(racks, (ptrace, trace, ptrace)))
     assert rs.engine == "scalar"
     assert_bytewise(rp, rj)
     assert_oracle(rp, rs)
+    if telemetry:
+        assert_telemetry_bytewise(rp.telemetry, rj.telemetry)
+        assert_event_parity(rs.telemetry, rp.telemetry)
+        assert_metric_parity(rs.telemetry, rp.telemetry)
     sram = {(r.mmu.engine.directory.capacity_evictions,
              r.mmu.engine.directory.peak_entries) for r in racks}
     assert len(sram) == 1, sram
