@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of MIND on one GPU: the coherence replay,
-the MIND-paged serving path and the kernel microbench.
+the MIND-paged serving path (a dense and an MoE model) and the kernel
+microbench.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -23,6 +24,24 @@ exits nonzero):
               recorded for phase 4.  A traced window of decode steps
               names the device time of both paged kernels (split and
               combine).
+   serve_moe — the same traffic on moonshot-v1-16b-a3b at full width (48
+              layers, d_model 2048, 16/16 heads of 128, 64 experts top-6
+              of d_ff 1408, swiglu) with param_dtype bfloat16 (56.1 GB;
+              the config's fp32 would be 112.2 GB) and a 1,024-page pool
+              (6.44 GB): the hard checks of serve, and every MoE call on
+              the card's route for bf16 (ops.MOE_ROUTES): 48 x (prefills +
+              decode steps) moe_experts launches.  Its widest decode
+              call (Hkv 16, G 1, D 128) and layer 0's MoE inputs are
+              recorded; the traced window also gives the MoE products'
+              share of device time.
+   moe      — moe_ffn (ragged and capacity) against its plain version
+              (the experts walked one by one) on layer 0's recorded
+              inputs (the widest decode step, the first prefill) in bf16
+              (2e-2) and fp32 (1e-4), under set_sync_debug_mode("error"),
+              the routing equal bytewise; then the grouped products alone
+              (ops.moe_experts) on both routes, timed cold beside their
+              plain version, their bound (the experts hit, read once; 2 x
+              slots x 3 x d x ff operations) and torch._grouped_mm.
 4. kernels  — every kernel against its plain PyTorch version on the card,
               on the inputs its main path gives it.  The replay kernels,
               bytewise, on the inputs recorded from one run of the main
@@ -46,9 +65,10 @@ exits nonzero):
               version, its byte bound and scaled_dot_product_attention on
               the same K/V gathered to dense; extra cases: an empty
               sequence, ragged last pages, unused block-table entries,
-              the gemma-2b shape, G = 1 at D = 256, and lengths
+              the gemma-2b shape, G = 1 at D = 256, lengths
               [1, 16, 17, 563] in one batch (splits wholly past the short
-              sequences).
+              sequences), and serve_moe's widest decode call (timed cold
+              beside its bound).
    kernel_bench — the kernels the JAX package reaches only through its
               kernel API (repro.kernels.ops, driven by
               benchmarks/kernel_bench.py), through the port's
@@ -71,9 +91,10 @@ exits nonzero):
               scaled_dot_product_attention; bf16/fp16 must take the
               tensor-core route (ops.FLASH_ROUTES).  The two kernels'
               launch counts are this phase's.
-5. paged_vs_dense — qwen3-4b at full width in fp32: one paged decode step
-              through the kernel against the dense-cache decode_step on
-              the same prompt, at 2e-3.
+5. paged_vs_dense — qwen3-4b at full width in fp32, then moonshot at full
+              width in fp32 cut to 4 layers (all 48 would be 112 GB): one
+              paged decode step through the kernels against the
+              dense-cache decode_step on the same prompt, at 2e-3.
 6. parity   — the CUDA engine against the port's scalar oracle on the
               MIND §7 rack (8 compute blades x 10 threads, rack defaults):
               M_A and GC at 2,000 and TF at 1,000 accesses per thread.
@@ -117,7 +138,11 @@ exits nonzero):
 Every time taken "cold" (time_ms_cold) has the L2 flushed before each call
 and left clean: 64 MB written, then 128 MB read, neither timed.
 
-Then one line {"kernels": [...]}, the nvidia-smi line, and last
+Each phase's model is freed (gc, empty_cache) before the next allocates.
+
+Then one line {"kernels": [...]} (the six ported TPU kernels and
+moe_experts, which has no TPU counterpart: tpu_kernel false), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Needs one CUDA device; it refuses to run
 without one or outside a checkout of the repository.
 
@@ -198,10 +223,25 @@ HBM_BYTES_S = 3.35e12
 ALU_OPS_S = 67e12
 TENSOR_OPS_S = 989e12
 
-# The serving cell: qwen3-4b at full width, random weights from SEED.
+# The serving cells: each model at full width, random weights from SEED,
+# under one traffic: 16 prompts of 500 tokens sharing a 256-token prefix,
+# 64 tokens each, max_batch 8, pages of 16 tokens.  serve_moe draws its
+# parameters in bf16 (moonshot's 28.1 B are 112.2 GB in the config's fp32,
+# 56.1 GB in bf16; the server computes in bf16 either way) and holds 1,024
+# pages (6.44 GB) beside them, where serve holds 4,096 (4,096 of moonshot's
+# would add 25.8 GB).
 SEED = 0
-SERVE = dict(arch="qwen3-4b", requests=16, prompt_len=500, shared_prefix=256,
-             max_new=64, max_batch=8, page_tokens=16, num_pages=4096)
+SERVE = dict(requests=16, prompt_len=500, shared_prefix=256, max_new=64,
+             max_batch=8, page_tokens=16)
+SERVES = {"serve": dict(SERVE, arch="qwen3-4b", num_pages=4096),
+          "serve_moe": dict(SERVE, arch="moonshot-v1-16b-a3b",
+                            num_pages=1024, param_dtype="bfloat16")}
+# Phase paged_vs_dense: each serving model at full width in fp32, moonshot
+# cut to 4 of its 48 layers (8.9 GB of fp32 experts; all 48 are 112 GB).
+PAGED_VS_DENSE_LAYERS = {"serve": None, "serve_moe": 4}
+# Phase moe: moe_ffn against its plain version, per compute dtype (outputs
+# of order 1, compared in fp32).
+MOE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 # The large-table case of stage 2: a table of 4,096 rows.
 LARGE_T = 4096
@@ -228,7 +268,16 @@ KERNELS = {
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention.py:25"),
+    # No TPU counterpart: the reference's grouped products are
+    # jax.lax.ragged_dot, an XLA op.  The reported case (bf16) runs the
+    # tensor-core route; fp32 runs the SIMT one (ops._moe_route).
+    "moe_experts": dict(
+        source="src/repro_torch/kernels/csrc/moe_experts.cu",
+        replaces="none: no TPU kernel (jax.lax.ragged_dot, XLA, at "
+                 "src/repro/models/moe.py:116)"),
 }
+# Kernels with no TPU counterpart (a kernel of the port alone).
+NO_TPU_KERNEL = ("moe_experts",)
 # Kernels on no path of the system: the JAX package reaches them through
 # its kernel API alone, so their launches are those of phase kernel_bench.
 BENCH_KERNELS = ("msi_transition", "flash_attention")
@@ -758,20 +807,25 @@ def phase_kernels(device, scale: float = 1.0):
 # --------------------------------------------------------------------- #
 # The serving path.
 # --------------------------------------------------------------------- #
-def serve_setup(scale: float, compute_dtype: str = "bfloat16"):
-    """The serve cell's config and prompts.  At ``scale < 1`` (CPU
+def serve_setup(scale: float, compute_dtype: str = "bfloat16",
+                cell: str = "serve", param_dtype: str | None = None):
+    """A serving cell's config and prompts.  At ``scale < 1`` (CPU
     rehearsals) the model is ``reduced_config``'s and the prompts shrink;
-    at 1 it is qwen3-4b exactly as ``get_config`` gives it."""
+    at 1 it is the cell's model exactly as ``get_config`` gives it, in
+    ``compute_dtype``, with the cell's ``param_dtype`` unless one is
+    given."""
     import numpy as np
 
     from repro_torch.configs import get_config, reduced_config
 
-    s = dict(SERVE)
+    s = dict(SERVES[cell])
     cfg = get_config(s["arch"])
     if scale < 1:
         cfg = reduced_config(cfg)
         s.update(prompt_len=40, shared_prefix=16, max_new=6, num_pages=512)
-    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    cfg = dataclasses.replace(
+        cfg, compute_dtype=compute_dtype,
+        param_dtype=param_dtype or s.get("param_dtype", cfg.param_dtype))
     rng = np.random.default_rng(SEED)
     shared = rng.integers(0, cfg.vocab_size, s["shared_prefix"])
     prompts = [np.concatenate([shared, rng.integers(
@@ -789,21 +843,50 @@ def init_params(model, device):
     return model.init(torch.Generator(device=device).manual_seed(SEED))
 
 
-def phase_serve(device, scale: float = 1.0):
-    """Phase 3: PagedServer on qwen3-4b at full width.  Returns the phase
-    line and the recorded arguments of its widest decode call."""
+def tensor_gb(tree) -> float:
+    """Bytes of every tensor in a nested dict/list, in GB."""
+    if isinstance(tree, dict):
+        return sum(tensor_gb(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tensor_gb(v) for v in tree)
+    return tree.numel() * tree.element_size() / 1e9
+
+
+def free_device(device) -> None:
+    """Drop what the last phase left (reference cycles included) before
+    the next phase allocates its model."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
+    """Phases serve and serve_moe: PagedServer on the cell's model at full
+    width.  Returns the phase line, the recorded arguments of its widest
+    decode call's ``paged_attention`` and, for an MoE model, layer 0's
+    MoE inputs (``moe_ffn``'s input at the widest decode step and at the
+    first prefill, and the layer's params as the server holds them)."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import _dtype
     from repro_torch.models.model import LM
     from repro_torch.serving.engine import PagedServer
 
-    cfg, s, prompts = serve_setup(scale)
+    cfg, s, prompts = serve_setup(scale, cell=cell)
     model = LM(cfg, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t = time.perf_counter()
     params = init_params(model, device)
     sync(device)
     init_s = time.perf_counter() - t
+    params_gb = tensor_gb(params)
     srv = PagedServer(model, params, max_batch=s["max_batch"],
                       page_tokens=s["page_tokens"],
                       num_pages=s["num_pages"], device=device)
@@ -837,7 +920,24 @@ def phase_serve(device, scale: float = 1.0):
         widest["calls"] += 1
         return inner_pa(q, kp, vp, bt, sl, **kw)
 
+    # Layer 0's moe_ffn inputs: the first prefill's and the widest decode
+    # step's (the last of equals), for phase moe.
+    moe = {"calls": 0, "decode": None, "prefill": None, "params": None}
+    inner_moe = M.moe_ffn
+
+    def moe_recorder(p, c, x, **kw):
+        if moe["calls"] % cfg.num_layers == 0:
+            moe["params"] = p
+            if x.shape[1] > 1:
+                if moe["prefill"] is None:
+                    moe["prefill"] = x.clone()
+            elif moe["decode"] is None or x.shape[0] >= moe["decode"].shape[0]:
+                moe["decode"] = x.clone()
+        moe["calls"] += 1
+        return inner_moe(p, c, x, **kw)
+
     ops.paged_attention = recorder
+    M.moe_ffn = moe_recorder
     ops.reset_launches()
     try:
         sync(device)
@@ -847,8 +947,10 @@ def phase_serve(device, scale: float = 1.0):
         wall = time.perf_counter() - t
     finally:
         ops.paged_attention = inner_pa
-        srv._prefill = inner_prefill
+        M.moe_ffn = inner_moe
+        del srv._prefill  # back to the method (no reference cycle)
     launches = dict(ops.LAUNCHES)
+    moe_routes = dict(ops.MOE_ROUTES)
 
     done = sorted(srv.finished, key=lambda r: r.rid)
     gen = [r.generated for r in done]
@@ -868,13 +970,30 @@ def phase_serve(device, scale: float = 1.0):
                              f"{launches['paged_attention']} times in "
                              f"{steps} decode steps of {cfg.num_layers} "
                              f"layers")
+    moe_calls = cfg.num_layers * (prefill["calls"] + steps)
+    if cfg.moe is not None:
+        if moe["calls"] != moe_calls:
+            raise AssertionError(f"{moe['calls']} moe_ffn calls, expected "
+                                 f"{moe_calls}")
+        # Every MoE call on the card takes the route its dtype gives.
+        route = ops._moe_route(_dtype(cfg.compute_dtype), cfg.d_model,
+                               cfg.moe.d_ff_expert)
+        if device.type == "cuda" and not (
+                launches["moe_experts"] == moe_routes[route] == moe_calls):
+            raise AssertionError(f"moe_experts launched "
+                                 f"{launches['moe_experts']} times "
+                                 f"({moe_routes}), expected {moe_calls} on "
+                                 f"the {route} route")
     decode_s = wall - prefill["s"]
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
     profile = profile_decode(srv, prompts[:s["max_batch"]], device)
     line = dict(
-        arch=cfg.arch_id, layers=cfg.num_layers, d_model=cfg.d_model,
-        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
-        vocab=cfg.vocab_size, compute_dtype=cfg.compute_dtype,
+        arch=cfg.arch_id, family=cfg.family, layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=cfg.num_heads,
+        kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, param_dtype=cfg.param_dtype,
+        compute_dtype=cfg.compute_dtype, params_gb=params_gb,
         requests=len(prompts), prompt_len=s["prompt_len"],
         shared_prefix=s["shared_prefix"], max_new=s["max_new"],
         max_batch=s["max_batch"], page_tokens=s["page_tokens"],
@@ -886,10 +1005,17 @@ def phase_serve(device, scale: float = 1.0):
         tokens_per_s=stats["tokens"] / wall,
         decode_tokens_per_s=stats["tokens"] / decode_s,
         stats=stats, pages_in_use=in_use, launches=launches,
-        peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
-                     if device.type == "cuda" else None),
-        decode_profile=profile)
-    return line, widest["args"]
+        peak_mem_gb=peak, decode_profile=profile)
+    if cfg.moe is not None:
+        line.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                    d_ff_expert=cfg.moe.d_ff_expert, moe_calls=moe_calls,
+                    moe_routes=moe_routes)
+        return line, widest["args"], moe
+    return line, widest["args"], None
+
+
+# Kernels of the two grouped MoE products, by name in a profiler trace.
+MOE_KERNEL_NAMES = ("moe_wmma_kernel", "moe_simt_kernel")
 
 
 def profile_decode(srv, prompts, device, steps: int = 8):
@@ -924,17 +1050,186 @@ def profile_decode(srv, prompts, device, steps: int = 8):
                   key=lambda r: -r[2])
     busy_ms = sum(ms for _, _, ms in kern)
     seen = busy_ms > 0
-    # Both kernels of paged_attention: the split pass and the combine.
-    paged = {name: [dict(name=k[:90], count=c, ms=ms, share=ms / busy_ms)
+    # Both kernels of paged_attention: the split pass and the combine; and
+    # the MoE products (up and down launches of one route).
+    named = {name: [dict(name=k[:90], count=c, ms=ms, share=ms / busy_ms)
                     for k, c, ms in kern if name in k]
-             for name in ("paged_split_kernel", "paged_combine_kernel")}
+             for name in ("paged_split_kernel", "paged_combine_kernel",
+                          *MOE_KERNEL_NAMES)}
+    moe_ms = sum(r["ms"] for n in MOE_KERNEL_NAMES for r in named[n])
     return dict(steps=steps, wall_ms=wall * 1e3,
                 step_ms=wall * 1e3 / steps,
                 device_busy_ms=busy_ms if seen else None,
                 device_idle_share=1 - busy_ms / (wall * 1e3) if seen else None,
-                paged_kernels=paged if seen else None,
+                paged_kernels={n: named[n] for n in (
+                    "paged_split_kernel", "paged_combine_kernel")}
+                if seen else None,
+                moe_kernels=dict(
+                    ms=moe_ms, share=moe_ms / busy_ms,
+                    kernels=[r for n in MOE_KERNEL_NAMES for r in named[n]])
+                if seen and moe_ms else None,
                 top_kernels=[dict(name=k[:90], count=c, ms=ms)
                              for k, c, ms in kern[:10]])
+
+
+# --------------------------------------------------------------------- #
+# The MoE products.
+# --------------------------------------------------------------------- #
+def grouped_args(p, cfg, x):
+    """The arguments ``moe_ffn`` (ragged) hands the grouped products for
+    ``x``: the token rows sorted by expert, the group ends, the weights
+    and the activation."""
+    from repro_torch.kernels.moe_experts import moe_experts_plain
+    from repro_torch.models import moe as M
+
+    seen = []
+
+    def capture(*args):
+        seen.append(args)
+        return moe_experts_plain(*args)
+
+    M.moe_ffn(p, dataclasses.replace(cfg, moe_impl="ragged"), x,
+              _experts=capture)
+    return seen[0]
+
+
+def grouped_mm_library(xs, offs, w_gate, w_up, w_down, act):
+    """The yardstick: the same products as three ``torch._grouped_mm``
+    calls (a library call, used nowhere in the port) and the activation."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import activation
+
+    gm = torch._grouped_mm
+    h = activation(act, gm(xs, w_gate, offs=offs)) * gm(xs, w_up, offs=offs)
+    return gm(h, w_down, offs=offs)
+
+
+def no_host_sync(device):
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block, on
+    the card."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def block():
+        if device.type != "cuda":
+            yield
+            return
+        torch.cuda.synchronize(device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    return block()
+
+
+def phase_moe(device, cfg, rec):
+    """Phase moe: ``moe_ffn`` on the card against its plain version
+    (``_experts=moe_experts_plain``) on layer 0's inputs recorded by
+    serve_moe (the widest decode step's and the first prefill's), with the
+    layer's params as the server held them: both dispatches, bf16 (2e-2)
+    and fp32 (1e-4), each call under ``set_sync_debug_mode("error")``;
+    the routing of both paths equal bytewise, every call on the route its
+    dtype gives.  Then the grouped products alone (``ops.moe_experts``)
+    on both routes, held to the plain version and timed cold beside it,
+    their bound and ``torch._grouped_mm``; and ``moe_ffn`` itself timed
+    cold (both dispatches, bf16)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_experts import moe_experts_plain
+    from repro_torch.models import moe as M
+
+    d, ff = cfg.d_model, cfg.moe.d_ff_expert
+    inputs = {"decode": rec["decode"], "prefill": rec["prefill"]}
+    held_rows, timed = {}, {}
+    for dtype, tol in MOE_TOL.items():
+        tdt = getattr(torch, dtype)
+        route = ops._moe_route(tdt, d, ff)
+        p = {k: v.to(tdt) for k, v in rec["params"].items()}
+        for impl in ("ragged", "capacity"):
+            c = dataclasses.replace(cfg, moe_impl=impl, compute_dtype=dtype)
+            for name, x0 in inputs.items():
+                x = x0.to(tdt)
+                before = dict(ops.MOE_ROUTES)
+                with no_host_sync(device):
+                    got, aux = M.moe_ffn(p, c, x)
+                    routing = M.moe_route(p, c, x)
+                sync(device)
+                routes = {r: ops.MOE_ROUTES[r] - before[r] for r in before}
+                want, want_aux = M.moe_ffn(p, c, x,
+                                           _experts=moe_experts_plain)
+                label = f"moe_ffn ({impl}, {name}, {dtype})"
+                if not all(torch.equal(a, b) for a, b in zip(
+                        routing, M.moe_route(p, c, x))):
+                    raise AssertionError(f"{label}: the routing differs")
+                if device.type == "cuda" and routes != {
+                        r: int(r == route) for r in routes}:
+                    raise AssertionError(f"{label}: routes {routes}, "
+                                         f"expected one {route} call")
+                held_rows[f"{impl} {name} {dtype}"] = dict(
+                    max_abs_err=held(label, got, want, tol), tolerance=tol,
+                    route=route, aux_equal=bool(torch.equal(aux, want_aux)),
+                    out_rms=float(want.float().square().mean().sqrt()),
+                    slots=x.shape[0] * x.shape[1] * cfg.moe.top_k)
+                del got, want
+        # The grouped products alone, at the main path's shapes.
+        for name, x0 in inputs.items():
+            args = grouped_args(p, cfg, x0.to(tdt))
+            xs, offs = args[0], args[1]
+            ends = offs.long()
+            counts = ends - torch.cat([ends.new_zeros(1), ends[:-1]])
+            hit = int((counts > 0).sum())
+            want = moe_experts_plain(*args)
+            err = max(held(f"moe_experts ({r}, {name}, {dtype})",
+                           ops.moe_experts(*args, _route=r), want, tol)
+                      for r in ([route, "simt"] if route != "simt"
+                                else ["simt"]))
+            el = xs.element_size()
+            m = xs.shape[0]
+            nbytes = hit * 3 * d * ff * el + 2 * m * d * el + offs.numel() * 4
+            nops = 2 * m * 3 * d * ff
+            row = dict(
+                M=m, d=d, ff=ff, E=offs.numel(), experts_hit=hit,
+                route=route, max_abs_err=err, tolerance=tol,
+                ms=time_ms_cold(lambda: ops.moe_experts(*args), 20, device),
+                plain_ms=time_ms_cold(lambda: moe_experts_plain(*args), 3,
+                                      device),
+                bytes=nbytes, flops=nops,
+                bound=bound_ms(nbytes, nops, TENSOR_OPS_S
+                               if tdt != torch.float32 else ALU_OPS_S),
+                library_ms=None)
+            if route != "simt":
+                row["simt_ms"] = time_ms_cold(
+                    lambda: ops.moe_experts(*args, _route="simt"), 20,
+                    device)
+            if device.type == "cuda" and tdt != torch.float32:
+                try:
+                    lib = grouped_mm_library(*args)
+                except Exception as exc:  # the yardstick only
+                    row["library_error"] = f"{type(exc).__name__}: {exc}"[:200]
+                else:
+                    row["library_err"] = held(
+                        f"torch._grouped_mm ({name}, {dtype})", lib, want, tol)
+                    row["library_ms"] = time_ms_cold(
+                        lambda: grouped_mm_library(*args), 20, device)
+            row["share_of_bound"] = row["bound"][0] / row["ms"]
+            timed[f"{name} {dtype}"] = row
+            del args, want
+        if tdt != torch.float32:
+            for impl in ("ragged", "capacity"):
+                c = dataclasses.replace(cfg, moe_impl=impl,
+                                        compute_dtype=dtype)
+                for name, x0 in inputs.items():
+                    x = x0.to(tdt)
+                    timed[f"{name} {dtype}"][f"moe_ffn_{impl}_ms"] = (
+                        time_ms_cold(lambda: M.moe_ffn(p, c, x), 10, device))
+        del p
+    return dict(held=held_rows, products=timed)
 
 
 def paged_case(rng, b, hq, hkv, d, page, maxp, dtype, device, lens=None):
@@ -975,12 +1270,27 @@ def held(name, got, want, tol) -> float:
     return err
 
 
-def paged_kernel_row(device, recorded):
+def paged_bound(q, kp, bt, sl):
+    """``(bytes, operations, pages)`` of one paged_attention call: q and
+    out once, each sequence's ceil(seq_len/page) K and V pages once;
+    operations 4*D per (query head, key)."""
+    _, hq, d = q.shape
+    _, page, hkv, _ = kp.shape
+    lens = sl.long().clamp(min=0)
+    pages = int(((lens + page - 1) // page).clamp(max=bt.shape[1]).sum())
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + 2 * pages * page * hkv * d * el
+    return nbytes, 4 * d * hq * int(lens.sum()), pages
+
+
+def paged_kernel_row(device, recorded, extra_calls=None):
     """Phase 4, serving: ``paged_attention`` against its plain version on
-    the serve run's widest decode call and on the extra cases; its time
-    (L2 flushed before each call), its plain version's, its byte bound and
-    the yardstick ``scaled_dot_product_attention`` on the same K/V gathered
-    to dense (the gather not timed)."""
+    the serve run's widest decode call and on the extra cases (synthetic
+    ones, and ``extra_calls``: other serving cells' widest decode calls,
+    each timed cold beside its bound); its time (L2 flushed before each
+    call), its plain version's, its byte bound and the yardstick
+    ``scaled_dot_product_attention`` on the same K/V gathered to dense (the
+    gather not timed)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1021,13 +1331,27 @@ def paged_kernel_row(device, recorded):
                 raise AssertionError("seq_len 0 did not give zeros")
         extra[name] = row
 
-    # Bound: q and out once, each sequence's ceil(seq_len/page) K and V
-    # pages once; operations 4*D per (query head, key) at the tensor peak.
-    lens = sl.long().clamp(min=0)
-    pages = int(((lens + page - 1) // page).clamp(max=bt.shape[1]).sum())
-    el = q.element_size()
-    nbytes = 2 * q.numel() * el + 2 * pages * page * hkv * d * el
-    nops = 4 * d * hq * int(lens.sum())
+    for name, call in (extra_calls or {}).items():
+        row = {}
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+            args = tuple(a.to(dt) for a in call[:3]) + call[3:]
+            row[str(dt).split(".")[1]] = held(
+                f"paged_attention ({name}, {dt})", ops.paged_attention(*args),
+                paged_attention_plain(*args), tol)
+            del args
+        cb, chq, cd = call[0].shape
+        cbytes, cops, cpages = paged_bound(call[0], call[1], call[3], call[4])
+        row.update(
+            shape=dict(B=cb, Hq=chq, Hkv=call[1].shape[2], D=cd,
+                       page=call[1].shape[1], maxp=call[3].shape[1],
+                       seq_lens=call[4].tolist(), kv_pages_read=cpages),
+            ms=time_ms_cold(lambda: ops.paged_attention(*call), 50, device),
+            bound=bound_ms(cbytes, cops, TENSOR_OPS_S))
+        row["share_of_bound"] = row["bound"][0] / row["ms"]
+        extra[name] = row
+
+    # Bound at the tensor peak.
+    nbytes, nops, pages = paged_bound(q, kp, bt, sl)
     ms = time_ms_cold(lambda: ops.paged_attention(q, kp, vp, bt, sl), 50,
                       device)
     plain_ms = time_ms_cold(
@@ -1279,10 +1603,11 @@ def phase_kernel_bench(device, scale: float = 1.0):
     return dict(bench=cells, msi_transition=msi, flash_attention=flash)
 
 
-def phase_paged_vs_dense(device, scale: float = 1.0):
-    """Phase 5: qwen3-4b at full width in fp32 — one paged decode step
-    through the kernel against the dense-cache ``decode_step`` on the same
-    prompt (the contract of tests/test_serving.py, at 2e-3)."""
+def phase_paged_vs_dense(device, scale: float = 1.0, cell: str = "serve"):
+    """Phase 5: a serving cell's model at full width in fp32 (moonshot cut
+    to PAGED_VS_DENSE_LAYERS layers) — one paged decode step through the
+    kernels against the dense-cache ``decode_step`` on the same prompt
+    (the contract of tests/test_serving.py, at 2e-3)."""
     import numpy as np
     import torch
 
@@ -1290,7 +1615,12 @@ def phase_paged_vs_dense(device, scale: float = 1.0):
     from repro_torch.models.model import LM
     from repro_torch.serving.engine import PagedServer
 
-    cfg, s, prompts = serve_setup(scale, compute_dtype="float32")
+    cfg, s, prompts = serve_setup(scale, compute_dtype="float32", cell=cell,
+                                  param_dtype="float32")
+    full_layers = cfg.num_layers
+    if PAGED_VS_DENSE_LAYERS[cell] and scale >= 1:
+        cfg = dataclasses.replace(cfg,
+                                  num_layers=PAGED_VS_DENSE_LAYERS[cell])
     prompt = prompts[0]
     n = len(prompt)
     pt = s["page_tokens"]
@@ -1319,16 +1649,21 @@ def phase_paged_vs_dense(device, scale: float = 1.0):
                                tokens, lengths,
                                torch.from_numpy(bt).to(device))
     sync(device)
-    launches = ops.LAUNCHES["paged_attention"]
-    if device.type == "cuda" and launches != cfg.num_layers:
-        raise AssertionError(f"{launches} paged_attention launches for "
-                             f"{cfg.num_layers} layers")
+    launches = {k: ops.LAUNCHES[k] for k in ("paged_attention",
+                                             "moe_experts")}
+    want_launches = {"paged_attention": cfg.num_layers,
+                     "moe_experts": cfg.num_layers if cfg.moe else 0}
+    if device.type == "cuda" and launches != want_launches:
+        raise AssertionError(f"launches {launches} for {cfg.num_layers} "
+                             f"layers, expected {want_launches}")
     err = held("paged vs dense decode logits (fp32)", got, want, 2e-3)
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("non-finite logits")
     return dict(arch=cfg.arch_id, compute_dtype=cfg.compute_dtype,
-                prompt_len=n, vocab=cfg.vocab_size, max_abs_err=err,
-                tolerance=2e-3, launches=launches,
+                layers=cfg.num_layers, layers_of_model=full_layers,
+                params_gb=tensor_gb(params), prompt_len=n,
+                vocab=cfg.vocab_size, max_abs_err=err, tolerance=2e-3,
+                launches=launches, moe_routes=dict(ops.MOE_ROUTES),
                 logits_absmax=float(want.abs().max()))
 
 
@@ -1851,8 +2186,8 @@ def main() -> int:
             for p in sorted(ops.BUILD_DIR.glob("*.log"))}
     build_s = time.perf_counter() - t
     resources = {src: ptxas_kernels((ops.BUILD_DIR / f"{src}.log").read_text())
-                 for src in NO_SPILL_SOURCES}
-    spills = [k for r in resources.values() for k, v in r.items()
+                 for src in (*NO_SPILL_SOURCES, "moe_experts")}
+    spills = [k for src in NO_SPILL_SOURCES for k, v in resources[src].items()
               if v["spill_stores"] or v["spill_loads"]]
     if spills or not all(resources.values()):
         raise AssertionError(f"register spills or no ptxas report: {spills}, "
@@ -1865,18 +2200,37 @@ def main() -> int:
           "library": str(lib.relative_to(ROOT)), "ptxas": logs,
           "resources": resources, "hgmma": hgmma})
 
-    serve, recorded = phase_serve(device)
+    serve, recorded, _ = phase_serve(device)
     emit({"phase": "serve", **serve})
-    torch.cuda.empty_cache()
+    free_device(device)
+    t = time.perf_counter()
+    serve_moe, recorded_moe, moe_rec = phase_serve(device, cell="serve_moe")
+    emit({"phase": "serve_moe", "seconds": time.perf_counter() - t,
+          **serve_moe})
+    free_device(device)  # the model goes; layer 0's MoE params stay
+    t = time.perf_counter()
+    moe = phase_moe(device, serve_setup(1.0, cell="serve_moe")[0], moe_rec)
+    del moe_rec
+    emit({"phase": "moe", "seconds": time.perf_counter() - t, **moe})
+    free_device(device)
     kern = phase_kernels(device)
     for kname, fn in (("translate_lookup", "translate_kernel"),
                       ("protect_check", "protect_kernel")):
         kern[kname]["ptxas"] = {k: v for k, v in resources["range_match"].items()
                                 if fn in k}
-    kern["paged_attention"] = paged_kernel_row(device, recorded)
-    del recorded
+    kern["paged_attention"] = paged_kernel_row(
+        device, recorded, {"moonshot_serve_call": recorded_moe})
+    del recorded, recorded_moe
+    prod = moe["products"]["decode bfloat16"]
+    kern["moe_experts"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in moe["products"].values()),
+        tolerance=dict(MOE_TOL), ms=prod["ms"], plain_ms=prod["plain_ms"],
+        bound=prod["bound"], library_ms=prod["library_ms"],
+        shape={k: prod[k] for k in ("M", "d", "ff", "E", "experts_hit",
+                                    "route")},
+        ptxas=resources["moe_experts"])
     emit({"phase": "kernels", **kern})
-    torch.cuda.empty_cache()
+    free_device(device)
     ops.reset_launches()
     t = time.perf_counter()
     bench = phase_kernel_bench(device)
@@ -1894,9 +2248,11 @@ def main() -> int:
         bench["flash_attention"][top],
         max_abs_err=max(c["max_abs_err"]
                         for c in bench["flash_attention"].values()))
-    torch.cuda.empty_cache()
-    emit({"phase": "paged_vs_dense", **phase_paged_vs_dense(device)})
-    torch.cuda.empty_cache()
+    free_device(device)
+    for cell in SERVES:
+        emit({"phase": "paged_vs_dense",
+              **phase_paged_vs_dense(device, cell=cell)})
+        free_device(device)
     emit({"phase": "parity", "cells": phase_parity(device)})
     main_run = phase_main(device)
     emit({"phase": "main", **main_run})
@@ -1911,13 +2267,23 @@ def main() -> int:
         emit({"phase": phase.__name__[len("phase_"):],
               "seconds": time.perf_counter() - t, **out})
 
+    # Launches on each kernel's path: the main replay cell, phase
+    # kernel_bench, the serve run (paged_attention; serve_moe's beside it)
+    # and the serve_moe run (moe_experts).
     launches = {**main_run["launches"], **bench_launches,
-                "paged_attention": serve["launches"]["paged_attention"]}
+                "paged_attention": serve["launches"]["paged_attention"],
+                "moe_experts": serve_moe["launches"]["moe_experts"]}
+    if not launches["moe_experts"]:
+        raise AssertionError("serve_moe launched no moe_experts kernel")
     lines = []
     for kname, info in KERNELS.items():
         k = kern[kname]
         b, by = k["bound"]
+        extra = ({"serve_moe_launches":
+                  serve_moe["launches"]["paged_attention"]}
+                 if kname == "paged_attention" else {})
         lines.append(dict(name=kname, route="cuda", **info,
+                          tpu_kernel=kname not in NO_TPU_KERNEL, **extra,
                           launches=launches[kname],
                           max_abs_err=k["max_abs_err"], ms=k["ms"],
                           plain_ms=k["plain_ms"], bound_ms=b, bound_by=by,

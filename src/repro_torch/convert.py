@@ -55,19 +55,21 @@ def lane_inputs_to_device(nwaves, dkc, slot, blade, write, valid, ptype, w0,
 def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     """The port's ``LM`` parameters from the JAX package's ``LM.init``
     pytree, given as nested dicts of NumPy arrays with the layers stacked on
-    axis 0 (dense family).  Every array goes through float32 (exact for
-    bfloat16 and float16 values) to ``cfg.param_dtype`` on ``device``; the
-    stacked ``layers`` become a list of per-layer dicts."""
+    axis 0 (dense and MoE families).  Every array goes through float32
+    (exact for bfloat16 and float16 values) to ``cfg.param_dtype`` on
+    ``device``, except an MoE ``router``, which stays float32 as the JAX
+    init made it; the stacked ``layers`` (expert stacks ``[L, E, ...]``
+    included) become a list of per-layer dicts."""
     from repro_torch.models.layers import _dtype
 
     dt = _dtype(cfg.param_dtype)
 
-    def conv(node, layer=None):
+    def conv(node, layer=None, name=None):
         if isinstance(node, dict):
-            return {k: conv(v, layer) for k, v in node.items()}
+            return {k: conv(v, layer, k) for k, v in node.items()}
         a = np.asarray(node)
         return to_device((a if layer is None else a[layer]).astype(np.float32),
-                         dt, device)
+                         torch.float32 if name == "router" else dt, device)
 
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
     out["layers"] = [conv(tree["layers"], i) for i in range(cfg.num_layers)]

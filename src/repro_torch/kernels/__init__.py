@@ -6,6 +6,8 @@
                      materialized transition table
 * paged_attention  — decode attention over the paged KV pool (serving)
 * flash_attention  — blocked (FlashAttention-2) attention, forward only
+* moe_experts      — the MoE experts' grouped products (no TPU kernel:
+                     the JAX package leaves them to XLA's ragged_dot)
 
 Each kernel's CUDA source lives in ``csrc/``; its plain PyTorch version
 sits in the module of the same name, and ops.py holds the wrappers that
@@ -17,6 +19,7 @@ from repro_torch.kernels.ops import (
     build_transition_table,
     flash_attention,
     lane_replay,
+    moe_experts,
     msi_transition,
     msi_transition_vectorized,
     paged_attention,
@@ -25,5 +28,6 @@ from repro_torch.kernels.ops import (
 )
 
 __all__ = ["ops", "build_transition_table", "flash_attention",
-           "lane_replay", "msi_transition", "msi_transition_vectorized",
-           "paged_attention", "protect_check", "translate_lookup"]
+           "lane_replay", "moe_experts", "msi_transition",
+           "msi_transition_vectorized", "paged_attention", "protect_check",
+           "translate_lookup"]

@@ -1,0 +1,385 @@
+// The MoE experts' grouped products on Hopper.
+//
+// Replaces no TPU kernel: the JAX package computes these products with
+// jax.lax.ragged_dot (src/repro/models/moe.py, moe_ffn_ragged), an XLA op.
+// The port's moe_ffn (ragged and capacity) launches them through
+// ops.moe_experts, once per MoE layer per prefill or decode step.
+//
+// What it computes.  The rows of A [M, K] are sorted by expert: expert e
+// owns rows [offs[e-1], offs[e]) (expert 0 from row 0), offs int32 [E]
+// cumulative.  One launch computes, for every row r of expert e,
+//   GLU modes:  out[r] = act(A[r] @ B[e]) * (A[r] @ B2[e])
+//   one-matrix: out[r] = act(A[r] @ B[e])  (or A[r] @ B[e], mode 0)
+// with B, B2 [E, K, N] row-major, act silu or tanh-gelu.  Each product is
+// rounded to the element type before the activation, the activation before
+// the gate's product, as the reference's ragged_dot and elementwise ops
+// round.  The wrapper launches it twice: up (A = tokens, N = ff), then down
+// (A = the up output, N = d, mode 0).  Rows past offs[E-1] are not written.
+//
+// Bound.  A decode step routes a few dozen rows, so each expert it touches
+// streams its three [d, ff] matrices once: bytes.  A 500-token prefill
+// routes 3,000 rows over 64 experts, ~47 each: tensor-core operations.
+//
+// Design.  One CTA per (row tile of one expert, 64-column tile).  The group
+// sizes stay on the device (the host never reads them, so a CUDA graph can
+// capture the call): the row tiles of all experts are numbered expert
+// after expert, the wrapper launches an upper bound of them, ceil(M/64) +
+// E, and warp 0 of each CTA finds its expert with a warp scan over offs;
+// a CTA numbered past the last expert's tiles returns.  CTAs of one column
+// tile and neighbouring row tiles run side by side, so an expert's weight
+// tile is read from device memory once and from L2 by its other row tiles.
+//   route "wmma" (bf16/fp16; K and N multiples of 8, 16-byte aligned
+//   tensors): 4 warps, each 32x32 of the 64x64 tile in 16x16x16
+//   tensor-core fragments with fp32 accumulators; tiles of depth 32 of A
+//   and B (and B2) double-buffered in shared memory by 16-byte cp.async;
+//   the accumulators go through shared memory for the epilogue.
+//   route "simt" (any float type and shape; fp32 always): 256 threads, 4x4
+//   outputs each, fp32 FMAs over tiles of depth 16 staged in shared memory.
+//
+// Plain C interface, bound with ctypes: the launcher returns the CUDA error
+// code of its launch (0 on success) and never synchronises.
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int kBM = 64;  // rows of a tile
+constexpr int kBN = 64;  // columns of a tile
+constexpr int kTcBK = 32;
+constexpr int kTcThreads = 128;
+constexpr int kSimtBK = 16;
+constexpr int kSimtThreads = 256;
+constexpr int kLdA = kTcBK + 8;  // 16-bit elements; rows stay 16-byte aligned
+constexpr int kLdB = kBN + 8;
+constexpr int kLdC = kBN + 4;    // floats
+constexpr int kLdS = kBM + 4;    // floats, simt tiles
+
+// Modes: 1 silu GLU, 2 gelu GLU, 3 silu, 4 gelu, 0 the product alone.
+constexpr int kPlain = 0;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
+
+// What a tensor of type T holds of v.
+template <typename T> __device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
+}
+
+// The output element from the fp32 sums of the first (a) and gate (b)
+// products.
+template <typename T>
+__device__ __forceinline__ float epilogue(int mode, float a, float b) {
+  if (mode == kPlain) return a;
+  const float x = rnd<T>(a);
+  const float act = rnd<T>((mode == 1 || mode == 3) ? silu(x) : gelu_tanh(x));
+  return mode <= 2 ? act * rnd<T>(b) : act;
+}
+
+// Warp 0: which expert owns row tile t, and its rows.  Writes (expert,
+// first row, end row) to info, expert -1 if t lies past the last tile.
+__device__ void find_tile(const int* __restrict__ offs, int E, int M, int t,
+                          int* info) {
+  const int lane = threadIdx.x & 31;
+  int carry = 0, found = -1, row0 = 0, row_end = 0;
+  for (int base = 0; base < E; base += 32) {
+    const int e = base + lane;
+    int lo = 0, hi = 0;
+    if (e < E) {
+      lo = min(max(e ? offs[e - 1] : 0, 0), M);
+      hi = min(max(offs[e], lo), M);
+    }
+    const int tiles = (hi - lo + kBM - 1) / kBM;
+    int incl = tiles;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const int start = carry + incl - tiles;
+    const unsigned hit = __ballot_sync(0xffffffffu, t >= start && t < start + tiles);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      found = base + src;
+      row0 = __shfl_sync(0xffffffffu, lo + (t - start) * kBM, src);
+      row_end = __shfl_sync(0xffffffffu, hi, src);
+      break;
+    }
+    carry += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (lane == 0) {
+    info[0] = found;
+    info[1] = row0;
+    info[2] = row_end;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------- //
+// Route "wmma".
+// ---------------------------------------------------------------------- //
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads)
+moe_wmma_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ b2,
+                const int* __restrict__ offs, T* __restrict__ out, int M, int K, int N, int E,
+                int mode) {
+  constexpr int kStageA = kBM * kLdA;
+  constexpr int kStageB = kTcBK * kLdB;
+  constexpr int kPipe = 2 * (kStageA + 2 * kStageB) * (int)sizeof(T);
+  constexpr int kEpi = 2 * kBM * kLdC * (int)sizeof(float);
+  __shared__ __align__(128) unsigned char smem[kPipe > kEpi ? kPipe : kEpi];
+  __shared__ int info[3];
+
+  if (threadIdx.x < 32) find_tile(offs, E, M, blockIdx.x, info);
+  __syncthreads();
+  const int group = info[0];
+  if (group < 0) return;
+  const int row0 = info[1], row_end = info[2];
+  const int col0 = blockIdx.y * kBN;
+  const bool glu = b2 != nullptr;
+  const T* bg = b + (size_t)group * K * N;
+  const T* bu = glu ? b2 + (size_t)group * K * N : b;
+  T* sa = reinterpret_cast<T*>(smem);  // [2][kBM][kLdA]
+  T* sb = sa + 2 * kStageA;            // [2][kTcBK][kLdB]
+  T* sb2 = sb + 2 * kStageB;           // [2][kTcBK][kLdB]
+
+  auto load = [&](int stage, int k0) {
+    for (int c = threadIdx.x; c < kBM * kTcBK / 8; c += kTcThreads) {
+      const int r = c / (kTcBK / 8), kc = (c % (kTcBK / 8)) * 8;
+      const int row = row0 + r, k = k0 + kc;
+      const bool ok = row < row_end && k < K;
+      cp_async16(sa + stage * kStageA + r * kLdA + kc, ok ? a + (size_t)row * K + k : a, ok);
+    }
+    for (int c = threadIdx.x; c < kTcBK * kBN / 8; c += kTcThreads) {
+      const int r = c / (kBN / 8), nc = (c % (kBN / 8)) * 8;
+      const int k = k0 + r, n = col0 + nc;
+      const bool ok = k < K && n < N;
+      const size_t off = (size_t)k * N + n;
+      cp_async16(sb + stage * kStageB + r * kLdB + nc, ok ? bg + off : bg, ok);
+      if (glu) cp_async16(sb2 + stage * kStageB + r * kLdB + nc, ok ? bu + off : bu, ok);
+    }
+    cp_async_commit();
+  };
+
+  const int warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], acc2[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::fill_fragment(acc[i][j], 0.f);
+      wmma::fill_fragment(acc2[i][j], 0.f);
+    }
+
+  const int nk = (K + kTcBK - 1) / kTcBK;
+  load(0, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      load((kt + 1) & 1, (kt + 1) * kTcBK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ta = sa + (kt & 1) * kStageA;
+    const T* tb = sb + (kt & 1) * kStageB;
+    const T* tb2 = sb2 + (kt & 1) * kStageB;
+#pragma unroll
+    for (int kk = 0; kk < kTcBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], ta + (wm + 16 * i) * kLdA + kk, kLdA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], tb + kk * kLdB + wn + 16 * j, kLdB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      if (glu) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(fb[j], tb2 + kk * kLdB + wn + 16 * j, kLdB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc2[i][j], fa[i], fb[j], acc2[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // The pipeline's buffers are free (every warp passed the last barrier).
+  float* sc = reinterpret_cast<float*>(smem);  // [kBM][kLdC]
+  float* sc2 = sc + kBM * kLdC;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int o = (wm + 16 * i) * kLdC + wn + 16 * j;
+      wmma::store_matrix_sync(sc + o, acc[i][j], kLdC, wmma::mem_row_major);
+      if (glu) wmma::store_matrix_sync(sc2 + o, acc2[i][j], kLdC, wmma::mem_row_major);
+    }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kBM * kBN; idx += kTcThreads) {
+    const int r = idx / kBN, c = idx % kBN;
+    const int row = row0 + r, n = col0 + c;
+    if (row < row_end && n < N) {
+      const float v = epilogue<T>(mode, sc[r * kLdC + c], glu ? sc2[r * kLdC + c] : 0.f);
+      out[(size_t)row * N + n] = from_f<T>(v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------- //
+// Route "simt".
+// ---------------------------------------------------------------------- //
+template <typename T>
+__global__ void __launch_bounds__(kSimtThreads)
+moe_simt_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ b2,
+                const int* __restrict__ offs, T* __restrict__ out, int M, int K, int N, int E,
+                int mode) {
+  __shared__ __align__(16) float sa[kSimtBK][kLdS];  // A transposed: [k][row]
+  __shared__ __align__(16) float sb[kSimtBK][kLdS];
+  __shared__ __align__(16) float sb2[kSimtBK][kLdS];
+  __shared__ int info[3];
+
+  if (threadIdx.x < 32) find_tile(offs, E, M, blockIdx.x, info);
+  __syncthreads();
+  const int group = info[0];
+  if (group < 0) return;
+  const int row0 = info[1], row_end = info[2];
+  const int col0 = blockIdx.y * kBN;
+  const bool glu = b2 != nullptr;
+  const T* bg = b + (size_t)group * K * N;
+  const T* bu = glu ? b2 + (size_t)group * K * N : b;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;  // columns tx*4.., rows ty*4..
+
+  float acc[4][4], acc2[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = acc2[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kSimtBK) {
+    for (int i = threadIdx.x; i < kBM * kSimtBK; i += kSimtThreads) {
+      const int r = i / kSimtBK, kk = i % kSimtBK;
+      const int row = row0 + r, k = k0 + kk;
+      sa[kk][r] = (row < row_end && k < K) ? to_f(a[(size_t)row * K + k]) : 0.f;
+    }
+    for (int i = threadIdx.x; i < kSimtBK * kBN; i += kSimtThreads) {
+      const int kk = i / kBN, c = i % kBN;
+      const int k = k0 + kk, n = col0 + c;
+      const bool ok = k < K && n < N;
+      sb[kk][c] = ok ? to_f(bg[(size_t)k * N + n]) : 0.f;
+      if (glu) sb2[kk][c] = ok ? to_f(bu[(size_t)k * N + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kSimtBK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&sa[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&sb[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      if (glu) {
+        const float4 cv = *reinterpret_cast<const float4*>(&sb2[kk][tx * 4]);
+        const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(ar[i], cr[j], acc2[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty * 4 + i;
+    if (row >= row_end) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = col0 + tx * 4 + j;
+      if (n < N) out[(size_t)row * N + n] = from_f<T>(epilogue<T>(mode, acc[i][j], acc2[i][j]));
+    }
+  }
+}
+
+template <typename T>
+int launch(int route, const void* a, const void* b, const void* b2, const void* offs, void* out,
+           int M, int K, int N, int E, int mode, cudaStream_t stream) {
+  const dim3 grid((M + kBM - 1) / kBM + E, (N + kBN - 1) / kBN);
+  const T* pa = static_cast<const T*>(a);
+  const T* pb = static_cast<const T*>(b);
+  const T* pb2 = static_cast<const T*>(b2);
+  const int* po = static_cast<const int*>(offs);
+  T* pout = static_cast<T*>(out);
+  if (route == 0) {
+    if constexpr (sizeof(T) == 2) {
+      moe_wmma_kernel<T><<<grid, kTcThreads, 0, stream>>>(pa, pb, pb2, po, pout, M, K, N, E,
+                                                          mode);
+    } else {
+      return cudaErrorInvalidValue;  // no fp32 tensor-core route
+    }
+  } else {
+    moe_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(pa, pb, pb2, po, pout, M, K, N, E,
+                                                          mode);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 fp32, 1 bf16, 2 fp16; route: 0 wmma, 1 simt; b2 null for the
+// one-matrix modes.
+extern "C" int moe_experts_launch(int dtype, int route, const void* a, const void* b,
+                                  const void* b2, const void* offs, void* out, int M, int K,
+                                  int N, int E, int mode, void* stream) {
+  if (M <= 0 || N <= 0 || E <= 0 || K <= 0 || mode < 0 || mode > 4 || route < 0 || route > 1)
+    return cudaErrorInvalidValue;
+  if ((mode == 1 || mode == 2) != (b2 != nullptr)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch<float>(route, a, b, b2, offs, out, M, K, N, E, mode, s);
+    case 1: return launch<__nv_bfloat16>(route, a, b, b2, offs, out, M, K, N, E, mode, s);
+    case 2: return launch<__half>(route, a, b, b2, offs, out, M, K, N, E, mode, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

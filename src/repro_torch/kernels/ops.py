@@ -17,7 +17,8 @@ grouping passes, then the walk) counts once.  ``FLASH_ROUTES`` tallies
 the ``flash_attention`` launches by route (:func:`_flash_route`),
 ``LANE_ROUTES`` the ``lane_replay`` launches (:func:`_lane_route`),
 ``TCAM_ROUTES`` the ``translate_lookup`` and ``protect_check`` launches
-(:func:`_tcam_route`).
+(:func:`_tcam_route`), ``MOE_ROUTES`` the ``moe_experts`` calls
+(:func:`_moe_route`; up, then down, counted once).
 
 The kernels are built from ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` at
 first use — one ``nvcc`` per source, all started together, then one link —
@@ -46,6 +47,7 @@ from repro_torch.kernels.directory_msi import (
 )
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.lane_replay import lane_replay_plain
+from repro_torch.kernels.moe_experts import ACTS, moe_experts_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.range_match import (
     NO_MATCH,
@@ -61,17 +63,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LPM_ROWS = 1 << 20  # translate keys are log2 * 2^20 + row
 
 LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
-            "paged_attention": 0, "msi_transition": 0, "flash_attention": 0}
+            "paged_attention": 0, "msi_transition": 0, "flash_attention": 0,
+            "moe_experts": 0}
 FLASH_ROUTES = {"wgmma": 0, "simt": 0}
 LANE_ROUTES = {"smem": 0, "global": 0}
 TCAM_ROUTES = {"staged": 0, "tiled": 0}
+MOE_ROUTES = {"wmma": 0, "simt": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES):
+    for counts in (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES,
+                   MOE_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -167,12 +172,15 @@ def _declare(lib) -> None:
                                            + [ctypes.c_float, i, p])
     lib.flash_attention_sm90_launch.argtypes = (
         lib.flash_attention_launch.argtypes)
+    # dtype, route, a b b2 offs out, M K N E mode, stream
+    lib.moe_experts_launch.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p]
     for f in (lib.rm_translate, lib.rm_protect, lib.rm_blocks_per_sm,
               lib.lane_replay_launch,
               lib.lane_replay_smem_optin,
               lib.paged_attention_split_launch,
               lib.paged_attention_combine_launch, lib.msi_transition_launch,
-              lib.flash_attention_launch, lib.flash_attention_sm90_launch):
+              lib.flash_attention_launch, lib.flash_attention_sm90_launch,
+              lib.moe_experts_launch):
         f.restype = i
 
 
@@ -729,11 +737,108 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+# --------------------------------------------------------------------- #
+# The MoE experts' grouped products.
+# --------------------------------------------------------------------- #
+_MOE_ROUTE_IDS = {"wmma": 0, "simt": 1}
+
+
+def _moe_route(dtype: torch.dtype, d: int, ff: int,
+               aligned: bool = True) -> str:
+    """Which kernel computes ``moe_experts`` on the card: ``"wmma"``
+    (tensor cores) for bf16/fp16 when ``d`` and ``ff`` are multiples of 8
+    and every tensor is 16-byte aligned (its 16-byte copies' rule), else
+    ``"simt"`` (fp32 FMAs; fp32 always takes it)."""
+    if (dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
+            and ff % 8 == 0 and aligned):
+        return "wmma"
+    return "simt"
+
+
+def _moe_mode(act: str, glu: bool) -> int:
+    """csrc/moe_experts.cu's epilogue: 1 silu GLU, 2 gelu GLU, 3 silu,
+    4 gelu."""
+    return (1 if act == "silu" else 2) + (0 if glu else 2)
+
+
+def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
+                w_up: torch.Tensor, w_down: torch.Tensor, act: str, *,
+                _route: str | None = None) -> torch.Tensor:
+    """The experts' grouped products over token rows sorted by expert:
+    ``act(xs @ w_gate[e]) * (xs @ w_up[e])`` (``act(xs @ w_up[e])`` when
+    ``w_gate`` is None), then ``@ w_down[e]``, for the rows ``[offs[e-1],
+    offs[e])`` of each expert ``e`` (layouts in
+    ``repro_torch.kernels.moe_experts``).
+
+    ``xs`` ``[M, d]`` and the weights (``[E, d, ff]``, ``[E, ff, d]``) in
+    one float type, ``offs`` int32 ``[E]``; ``act`` ``"silu"`` or
+    ``"gelu"``.  Returns ``[M, d]`` in xs's dtype, rows past ``offs[E-1]``
+    zero.  On the card the group sizes are never read on the host.
+    ``_route`` forces a route (tests and ``chip_smoke.py``; a forced
+    ``"wmma"`` the shapes do not allow raises)."""
+    dev = xs.device
+    if not isinstance(xs, torch.Tensor) or xs.dtype not in _PA_DTYPES:
+        raise TypeError(f"xs must be a float32/bfloat16/float16 tensor, "
+                        f"got {getattr(xs, 'dtype', type(xs))}")
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    _expect(xs, "xs", xs.dtype, 2, dev)
+    _expect(w_up, "w_up", xs.dtype, 3, dev)
+    _expect(w_down, "w_down", xs.dtype, 3, dev)
+    _expect(offs, "offs", torch.int32, 1, dev)
+    m, d = xs.shape
+    e, _, ff = w_up.shape
+    if w_gate is not None:
+        _expect(w_gate, "w_gate", xs.dtype, 3, dev)
+    if (tuple(w_up.shape) != (e, d, ff) or tuple(w_down.shape) != (e, ff, d)
+            or (w_gate is not None and w_gate.shape != w_up.shape)
+            or offs.shape[0] != e or e == 0 or ff == 0 or d == 0):
+        raise ValueError(
+            f"moe_experts shapes: xs {tuple(xs.shape)}, offs "
+            f"{tuple(offs.shape)}, w_gate "
+            f"{None if w_gate is None else tuple(w_gate.shape)}, w_up "
+            f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)} (need "
+            f"[M, d], [E], [E, d, ff], [E, d, ff], [E, ff, d], E, d, ff > 0)")
+    _int32_range(-(-m // 64) + e, "row tiles")  # the grid's x
+    if dev.type != "cuda":
+        return moe_experts_plain(xs, offs, w_gate, w_up, w_down, act)
+    tensors = (xs, w_up, w_down) + (() if w_gate is None else (w_gate,))
+    best = _moe_route(xs.dtype, d, ff,
+                      all(t.data_ptr() % 16 == 0 for t in tensors))
+    route = _route or best
+    if route not in _MOE_ROUTE_IDS:
+        raise ValueError(f"unknown moe_experts route {route!r}")
+    if route == "wmma" and best != "wmma":
+        raise ValueError(f"the wmma route needs bf16/fp16, d and ff "
+                         f"multiples of 8 and 16-byte aligned tensors "
+                         f"({xs.dtype}, d {d}, ff {ff})")
+    out = torch.zeros_like(xs)
+    if m == 0:
+        return out
+    lib = load_library()
+    h = torch.empty((m, ff), dtype=xs.dtype, device=dev)
+    glu = w_gate is not None
+    dt, rid = _PA_DTYPES[xs.dtype], _MOE_ROUTE_IDS[route]
+    with torch.cuda.device(dev):
+        _check(lib.moe_experts_launch(
+            dt, rid, xs.data_ptr(), (w_gate if glu else w_up).data_ptr(),
+            w_up.data_ptr() if glu else None, offs.data_ptr(), h.data_ptr(),
+            m, d, ff, e, _moe_mode(act, glu), _stream(dev)),
+            f"moe_experts (up, {route})")
+        _check(lib.moe_experts_launch(
+            dt, rid, h.data_ptr(), w_down.data_ptr(), None, offs.data_ptr(),
+            out.data_ptr(), m, ff, d, e, 0, _stream(dev)),
+            f"moe_experts (down, {route})")
+    LAUNCHES["moe_experts"] += 1
+    MOE_ROUTES[route] += 1
+    return out
+
+
 __all__ = [
-    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "NO_MATCH", "TCAM_ROUTES",
-    "build_library",
+    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "MOE_ROUTES", "NO_MATCH",
+    "TCAM_ROUTES", "build_library",
     "build_transition_table", "flash_attention", "lane_replay",
-    "lane_smem_bytes", "load_library", "msi_transition",
+    "lane_smem_bytes", "load_library", "moe_experts", "msi_transition",
     "msi_transition_vectorized", "paged_attention", "protect_check",
     "reset_launches", "translate_lookup",
 ]

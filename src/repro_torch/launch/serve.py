@@ -6,7 +6,12 @@
 
 Runs on the card by default (``--device cuda``).  Prints throughput and the
 MIND memory-management statistics (prefix hits, copy-on-write,
-invalidations, directory residency).
+invalidations, directory residency).  Serves the dense and MoE families;
+for MoE, e.g. ``--arch moonshot-v1-16b-a3b --reduced``.  At full width the
+params are drawn in the config's ``param_dtype``, float32 as the reference
+has it: moonshot-v1-16b-a3b's 28.1 B parameters are then 112.2 GB, more
+than one 80 GB card holds (``chip_smoke.py`` serves it at full width with
+``param_dtype="bfloat16"``, 56.1 GB).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Model layer: the dense family so far (``LM``), in plain PyTorch."""
+"""Model layer: the dense and MoE families so far (``LM``), in plain
+PyTorch."""
 
 from repro_torch.models.model import LM
 

@@ -1,7 +1,7 @@
-"""The language model for the dense family (plain PyTorch).
+"""The language model for the dense and MoE families (plain PyTorch).
 
 The counterpart of ``repro/models/model.py``'s ``LM`` for
-``family == "dense"``, with its functional interface:
+``family in ("dense", "moe")``, with its functional interface:
 
     init(generator)                    -> params
     prefill(params, batch)             -> (cache, last_logits)
@@ -13,7 +13,10 @@ them out (``[in, out]`` projections, ``[V, d]`` embedding) except that the
 layers are a list of per-layer dicts instead of arrays stacked on axis 0;
 ``repro_torch.convert.lm_params_from_numpy`` carries the JAX pytree over.
 The layer scans become Python loops.  Every other family raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item.  An MoE layer's router is
+fp32 in the parameters and, as in the reference, cast with the rest to the
+compute dtype (``_cast``); the routing then computes in fp32
+(``repro_torch.models.moe.moe_route``).
 """
 
 from __future__ import annotations
@@ -27,19 +30,19 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
+PORTED_FAMILIES = ("dense", "moe")
 UNPORTED_FAMILIES = {
-    "moe": B.MOE_TODO,
-    **{f: (f"the {f} family is not ported yet: ROADMAP.md Queue A item 8 "
-           f"(after MoE: the ssm, hybrid, audio and vlm families)")
-       for f in ("ssm", "hybrid", "audio", "vlm")},
-}
+    f: (f"the {f} family is not ported yet: ROADMAP.md Queue A item 8 "
+        f"(A8.2: the ssm, hybrid, audio and vlm families)")
+    for f in ("ssm", "hybrid", "audio", "vlm")}
 
 
 class LM:
-    """Dense decoder-only LM on ``device`` (CUDA unless told otherwise)."""
+    """Dense or MoE decoder-only LM on ``device`` (CUDA unless told
+    otherwise)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 UNPORTED_FAMILIES.get(cfg.family, f"family {cfg.family!r}"))
         if cfg.attn_3d_kernels:
@@ -73,8 +76,8 @@ class LM:
         return p
 
     def _cast(self, params):
-        """Mixed precision: fp32 parameters compute in ``compute_dtype``.
-        Pure and idempotent, so a caller may cast once and keep the copy
+        """Mixed precision: fp32 parameters compute in ``compute_dtype``
+        (the MoE router too, as in the reference).  Pure and idempotent, so a caller may cast once and keep the copy
         (``PagedServer`` does); the numbers are those of a cast per call."""
         cd = L._dtype(self.cfg.compute_dtype)
         if cd == torch.float32:

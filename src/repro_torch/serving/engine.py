@@ -8,7 +8,9 @@ block table — the hand-written CUDA kernel ``kernels/csrc/paged_attention.cu``
 on the card (:func:`repro_torch.kernels.ops.paged_attention`), its plain
 PyTorch version on the CPU.
 
-Supports the dense family (per-layer KV); MoE is the next ROADMAP item.
+Supports the dense and MoE families (per-layer KV; an MoE layer's FFN is
+``repro_torch.models.moe.moe_ffn``, whose grouped products are the
+hand-written kernels of ``kernels/csrc/moe_experts.cu`` on the card).
 Scheduler: admit-until-full continuous batching with page-granular
 allocation, exactly as the reference schedules.  The engine runs on CUDA
 unless the caller passes ``device="cpu"``.
@@ -24,6 +26,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
 from repro_torch.memory.paged_pool import PagedKVPool
+from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.model import LM
 
@@ -152,7 +155,7 @@ class PagedServer:
                                   seq_lens)  # [B, Hq, hd]
             x = x + L._out_proj(lp["attn"], o.reshape(b, 1, -1))
             hn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], cfg, hn)
+            x = x + B.dense_block_ffn(lp, cfg, hn)  # MLP or MoE
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = model._logits(params, x[:, 0])
         return logits, k_pool, v_pool

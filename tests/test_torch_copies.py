@@ -51,16 +51,17 @@ TRIMMED = {
     "dataplane/__init__.py": (("BatchedDataPlane", "build_wave_schedule",
                                "BASELINE_PHASES", "GamBatchedReplay",
                                "FastswapBatchedReplay"), ("jax", "jnp")),
-    # The dense block only; MoE, xLSTM, Mamba2 and cross-attention blocks
+    # The dense/MoE block only; xLSTM, Mamba2 and cross-attention blocks
     # come with their families.
     "models/blocks.py": (("dense_block_params", "dense_block_prefill",
-                          "dense_block_decode", "dense_cache_spec"),
-                         ("moe", "linear_recurrence")),
-    # LM for the dense family only: the other families raise.
+                          "dense_block_decode", "dense_cache_spec",
+                          "moe_params", "moe_ffn"),
+                         ("linear_recurrence",)),
+    # LM for the dense and MoE families only: the other families raise.
     "models/model.py": (("class LM", "def init", "def _cast", "def _embed",
                          "def _head_matrix", "def prefill",
-                         "def decode_step", "def init_cache"),
-                        ("moe", "linear_recurrence")),
+                         "def decode_step", "def init_cache", '"moe"'),
+                        ("linear_recurrence",)),
 }
 
 
@@ -92,8 +93,9 @@ def test_every_port_module_is_copied_trimmed_or_ported():
               "dataplane/engine.py", "kernels/__init__.py", "kernels/ops.py",
               "kernels/range_match.py", "kernels/lane_replay.py",
               "kernels/paged_attention.py", "kernels/directory_msi.py",
-              "kernels/flash_attention.py", "models/__init__.py",
-              "models/layers.py", "models/chunked_attention.py",
+              "kernels/flash_attention.py", "kernels/moe_experts.py",
+              "models/__init__.py", "models/layers.py",
+              "models/chunked_attention.py", "models/moe.py",
               "memory/__init__.py", "memory/paged_pool.py",
               "serving/__init__.py", "serving/engine.py",
               "launch/__init__.py", "launch/serve.py"}

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.base import MoEConfig
 from repro_torch.convert import lane_inputs_to_device, to_device, trace_from_numpy
 from repro_torch.core import traces as T
 from repro_torch.core.emulator import DisaggregatedRack
@@ -21,11 +22,13 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.directory_msi import msi_transition_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.lane_replay import lane_replay_plain
+from repro_torch.kernels.moe_experts import moe_experts_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.range_match import (
     protect_check_plain,
     translate_lookup_plain,
 )
+from repro_torch.models import moe as M
 from repro_torch.models.model import LM
 from repro_torch.serving.engine import PagedServer
 
@@ -725,3 +728,171 @@ def test_flash_wgmma_route_raises_when_the_tensor_map_fails(cuda,
     with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
         ops.flash_attention(q, q, q)
     assert (ops.LAUNCHES, ops.FLASH_ROUTES) == before
+
+
+# --------------------------------------------------------------------- #
+# The MoE experts' grouped products.
+# --------------------------------------------------------------------- #
+class _NoHostSync:
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+
+
+MOE_CASES = {
+    # (group sizes, d, ff); two rows past the last group in every case
+    "empty-groups": ([0, 5, 0, 0, 70, 1, 0, 3], 64, 96),  # 70: two row tiles
+    "b1-top6": ([1, 0, 1, 1, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0], 128, 64),
+    "prefill": ([40, 0, 37, 91, 12, 0, 64, 65, 1, 30, 0, 55, 8, 77, 20, 100],
+                256, 192),
+    "odd-widths": ([3, 0, 9], 20, 36),  # the SIMT route alone
+}
+MOE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 1e-2}
+
+
+def _moe_case(name, dtype, device, glu):
+    sizes, d, ff = MOE_CASES[name]
+    rng = np.random.default_rng(len(name) + d)
+    e, m = len(sizes), sum(sizes) + 2
+    xs = rng.standard_normal((m, d))
+    wg, wu = (rng.standard_normal((e, d, ff)) / np.sqrt(d) for _ in range(2))
+    wd = rng.standard_normal((e, ff, d)) / np.sqrt(ff)
+    offs = to_device(np.cumsum(sizes), torch.int32, device)
+    xs, wg, wu, wd = (to_device(a, dtype, device) for a in (xs, wg, wu, wd))
+    return xs, offs, wg if glu else None, wu, wd
+
+
+@pytest.mark.parametrize("glu,act", [(True, "silu"), (True, "gelu"),
+                                     (False, "gelu")])
+@pytest.mark.parametrize("route,dtype", [
+    ("wmma", torch.bfloat16), ("wmma", torch.float16),
+    ("simt", torch.float32), ("simt", torch.bfloat16)])
+@pytest.mark.parametrize("name", sorted(MOE_CASES))
+def test_moe_experts_routes_equal_plain(cuda, name, route, dtype, glu, act):
+    """Each route against the plain version, with empty groups, one
+    token's slots (B 1), rows past the last group (zeros), and no host
+    sync inside the call."""
+    args = _moe_case(name, dtype, cuda, glu)
+    if route == "wmma" and ops._moe_route(dtype, *MOE_CASES[name][1:]) != (
+            "wmma"):
+        with pytest.raises(ValueError, match="wmma"):
+            ops.moe_experts(*args, act, _route=route)
+        return
+    before = (ops.LAUNCHES["moe_experts"], dict(ops.MOE_ROUTES))
+    with _NoHostSync():
+        got = ops.moe_experts(*args, act, _route=route)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_experts"] == before[0] + 1
+    assert ops.MOE_ROUTES[route] == before[1][route] + 1
+    want = moe_experts_plain(*args, act)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert not got[-2:].any()
+    tol = MOE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _moe_cfg(impl, dtype):
+    """Reduced moonshot with the wide routing of tests/test_torch_moe.py:
+    16 experts, top-6, so three tokens leave experts empty and the
+    capacity dispatch drops slots."""
+    return dataclasses.replace(
+        reduced_config(get_config("moonshot-v1-16b-a3b")),
+        moe=MoEConfig(num_experts=16, top_k=6, d_ff_expert=64),
+        moe_impl=impl, compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("shape", [(3, 1), (1, 1), (2, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["ragged", "capacity"])
+def test_moe_ffn_takes_a_card_route_without_host_sync(cuda, impl, dtype,
+                                                      shape, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = _moe_cfg(impl, str(dtype).split(".")[1])
+    p = {k: v.to(dtype) for k, v in M.moe_params(
+        torch.Generator(device=cuda).manual_seed(0), cfg).items()}
+    x = torch.randn((*shape, cfg.d_model), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).to(dtype)
+    before = dict(ops.MOE_ROUTES)
+    with _NoHostSync():
+        got, aux = M.moe_ffn(p, cfg, x)
+        route = M.moe_route(p, cfg, x)
+    route_name = ops._moe_route(dtype, cfg.d_model, cfg.moe.d_ff_expert)
+    assert ops.MOE_ROUTES[route_name] == before[route_name] + 1
+    want, want_aux = M.moe_ffn(p, cfg, x, _experts=moe_experts_plain)
+    for a, b in zip(route, M.moe_route(p, cfg, x)):
+        assert torch.equal(a, b)  # the routing, bytewise
+    assert torch.equal(aux, want_aux)
+    tol = MOE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_moe_ffn_is_captured_by_a_cuda_graph(cuda):
+    """No host read of the group sizes: a decode-sized call replays from a
+    CUDA graph and gives the eager call's output."""
+    cfg = _moe_cfg("ragged", "bfloat16")
+    p = {k: v.to(torch.bfloat16) for k, v in M.moe_params(
+        torch.Generator(device=cuda).manual_seed(0), cfg).items()}
+    x = torch.randn((8, 1, cfg.d_model), device=cuda).to(torch.bfloat16)
+    eager, _ = M.moe_ffn(p, cfg, x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = M.moe_ffn(p, cfg, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager)
+
+
+def test_moe_experts_raise_instead_of_falling_back(cuda, monkeypatch):
+    class Broken:
+        def moe_experts_launch(self, *args):
+            return 700  # cudaErrorIllegalAddress
+
+    args = _moe_case("empty-groups", torch.bfloat16, cuda, True)
+    with pytest.raises(ValueError, match="wmma"):  # fp32 has no wmma route
+        ops.moe_experts(*(a.float() if a.dtype == torch.bfloat16 else a
+                          for a in args), "silu", _route="wmma")
+    with pytest.raises(ValueError):  # offs left on the CPU
+        ops.moe_experts(args[0], args[1].cpu(), *args[2:], "silu")
+    monkeypatch.setattr(ops, "_lib", Broken())
+    before = (dict(ops.LAUNCHES), dict(ops.MOE_ROUTES))
+    for route in ("wmma", "simt", None):
+        with pytest.raises(RuntimeError, match="moe_experts"):
+            ops.moe_experts(*args, "silu", _route=route)
+    assert (ops.LAUNCHES, ops.MOE_ROUTES) == before
+
+
+def test_moe_server_on_cuda_equals_cpu(cuda, monkeypatch):
+    """Reduced moonshot, fp32: the card's run (every MoE call on the SIMT
+    route) gives the CPU run's tokens and paging stats."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(
+        reduced_config(get_config("moonshot-v1-16b-a3b")),
+        compute_dtype="float32")
+    params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, cfg.vocab_size, 16)
+    tails = [rng.integers(0, cfg.vocab_size, n) for n in (5, 5, 3, 9)]
+    tails[1] = tails[0]
+    out = {}
+    for dev in ("cpu", cuda):
+        srv = PagedServer(LM(cfg, device=dev), _to(params, dev),
+                          max_batch=3, page_tokens=8, num_pages=64,
+                          device=dev)
+        for tl in tails:
+            srv.submit(np.concatenate([shared, tl]), max_new_tokens=6)
+        before = dict(ops.MOE_ROUTES)
+        stats = srv.run_until_done()
+        routes = {k: ops.MOE_ROUTES[k] - before[k] for k in before}
+        out[str(dev)] = (stats, {r.rid: r.generated for r in srv.finished},
+                         routes)
+    (cs, ctok, cr), (gs, gtok, gr) = out["cpu"], out[str(cuda)]
+    assert gs == cs and gtok == ctok
+    assert cr == {"wmma": 0, "simt": 0}
+    assert gr == {"wmma": 0,
+                  "simt": cfg.num_layers * (len(tails) + gs["steps"])}

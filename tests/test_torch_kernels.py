@@ -283,7 +283,8 @@ def test_wrappers_count_no_launch_on_cpu():
     _check_translate(np.array([1 << 40], np.int64), _toy_translate_table())
     assert P.LAUNCHES == {"protect_check": 0, "translate_lookup": 0,
                           "lane_replay": 0, "paged_attention": 0,
-                          "msi_transition": 0, "flash_attention": 0}
+                          "msi_transition": 0, "flash_attention": 0,
+                          "moe_experts": 0}
 
 
 def test_wrappers_validate_inputs():
