@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of MIND on one GPU: the coherence replay,
-the MIND-paged serving path (a dense and an MoE model) and the kernel
+the MIND-paged serving path (a dense and an MoE model), the four model
+families served through the LM interface alone, and the kernel
 microbench.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -95,6 +96,29 @@ exits nonzero):
               width in fp32 cut to 4 layers (all 48 would be 112 GB): one
               paged decode step through the kernels against the
               dense-cache decode_step on the same prompt, at 2e-3.
+   families — the four configs the reference serves through no server,
+              at full width and depth (xlstm-1.3b: 48 layers, 6 groups of 7
+              mLSTM + 1 sLSTM, 3.63 B parameters; zamba2-1.2b: 38 Mamba2
+              layers in 6 groups, each followed by the one shared attention
+              block, and a tail of 2; musicgen-large: 48 layers over 4
+              codebooks; llama-3.2-vision-11b: 40 self-attention layers, a
+              cross-attention block after every 5, 1,024 image tokens),
+              random weights from SEED (the vlm's cross gates, zero at
+              init, set to FAMILY_VLM_GATES), each model freed before the
+              next.
+              (a) bf16 (params drawn in bf16): 8 prompts of 512 tokens (two
+              identical; audio [8, 512, 4]; the vlm's image_embeds [8,
+              1,024, 4,096] from SEED), prefill to max_len 576, 64 greedy
+              decode steps; finite logits, identical tokens for the
+              identical prompts and the cache laid out as cache_specs are
+              hard checks; prefill s (each block kind's share timed), decode
+              ms a step and tokens/s, peak memory, and a traced window of 8
+              decode steps (busy and idle shares, kernels a step, top
+              kernels).  (b) tests/test_models.py's consistency contract in
+              fp32 (TF32 off): B 2, S 128, the backbone's logits at S-2
+              against prefill's (2e-4) and one decode step against S-1
+              (2e-3), both hard checks, recorded with the logits' RMS; a
+              finite loss.
 6. parity   — the CUDA engine against the port's scalar oracle on the
               MIND §7 rack (8 compute blades x 10 threads, rack defaults):
               M_A and GC at 2,000 and TF at 1,000 accesses per thread.
@@ -239,6 +263,18 @@ SERVES = {"serve": dict(SERVE, arch="qwen3-4b", num_pages=4096),
 # Phase paged_vs_dense: each serving model at full width in fp32, moonshot
 # cut to 4 of its 48 layers (8.9 GB of fp32 experts; all 48 are 112 GB).
 PAGED_VS_DENSE_LAYERS = {"serve": None, "serve_moe": 4}
+# Phase families: the four configs with no server in the reference, at
+# full width and depth.  (a) bf16 generation (params drawn in bf16: the
+# vlm's 11.5 B are 46.1 GB in fp32, 23.0 GB in bf16; the compute-dtype
+# params are the same either way): 8 prompts of 512 tokens, 64 greedy
+# decode steps, a traced window of 8.  (b) tests/test_models.py's
+# consistency contract in fp32: B 2, S 128.
+FAMILY_ARCHS = ("xlstm-1.3b", "zamba2-1.2b", "musicgen-large",
+                "llama-3.2-vision-11b")
+FAMILY_GEN = dict(batch=8, prompt_len=512, new=64, profile_steps=8)
+FAMILY_CHECK = dict(batch=2, seq=128, prefill_tol=2e-4, decode_tol=2e-3)
+# The vlm's cross-attention and cross-MLP tanh gates (zero at init).
+FAMILY_VLM_GATES = dict(gate=-0.6, mlp_gate=0.5)
 # Phase moe: moe_ffn against its plain version, per compute dtype (outputs
 # of order 1, compared in fp32).
 MOE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -1018,6 +1054,35 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
 MOE_KERNEL_NAMES = ("moe_wmma_kernel", "moe_simt_kernel")
 
 
+def device_kernels(prof):
+    """``(name, count, device ms)`` of every kernel a ``torch.profiler``
+    window saw, the most device time first."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[2])
+
+
+def window_line(kern, wall_s: float, steps: int) -> dict:
+    """A traced window of ``steps`` steps: its wall time, the device's busy
+    and idle shares over it, kernels a step and the kernels with the most
+    device time; the device numbers are None where the profiler saw no
+    device time (CPU rehearsals)."""
+    busy_ms = sum(ms for _, _, ms in kern)
+    seen = busy_ms > 0
+    return dict(steps=steps, wall_ms=wall_s * 1e3,
+                step_ms=wall_s * 1e3 / steps,
+                device_busy_ms=busy_ms if seen else None,
+                device_idle_share=1 - busy_ms / (wall_s * 1e3)
+                if seen else None,
+                kernels_per_step=sum(c for _, c, _ in kern) / steps
+                if seen else None,
+                top_kernels=[dict(name=k[:90], count=c, ms=ms)
+                             for k, c, ms in kern[:10]])
+
+
 def profile_decode(srv, prompts, device, steps: int = 8):
     """Where a decode step's time goes: after the timed run (its counts
     already read), admit ``prompts`` with one untraced step (the prefills
@@ -1027,8 +1092,6 @@ def profile_decode(srv, prompts, device, steps: int = 8):
     busy and idle shares over it, and the kernels with the most device
     time; the device numbers are None where the profiler saw no device
     time."""
-    import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for pr in prompts:
@@ -1044,10 +1107,7 @@ def profile_decode(srv, prompts, device, steps: int = 8):
         sync(device)
         wall = time.perf_counter() - t
     srv.run_until_done()
-    kern = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[2])
+    kern = device_kernels(prof)
     busy_ms = sum(ms for _, _, ms in kern)
     seen = busy_ms > 0
     # Both kernels of paged_attention: the split pass and the combine; and
@@ -1057,19 +1117,14 @@ def profile_decode(srv, prompts, device, steps: int = 8):
              for name in ("paged_split_kernel", "paged_combine_kernel",
                           *MOE_KERNEL_NAMES)}
     moe_ms = sum(r["ms"] for n in MOE_KERNEL_NAMES for r in named[n])
-    return dict(steps=steps, wall_ms=wall * 1e3,
-                step_ms=wall * 1e3 / steps,
-                device_busy_ms=busy_ms if seen else None,
-                device_idle_share=1 - busy_ms / (wall * 1e3) if seen else None,
+    return dict(window_line(kern, wall, steps),
                 paged_kernels={n: named[n] for n in (
                     "paged_split_kernel", "paged_combine_kernel")}
                 if seen else None,
                 moe_kernels=dict(
                     ms=moe_ms, share=moe_ms / busy_ms,
                     kernels=[r for n in MOE_KERNEL_NAMES for r in named[n]])
-                if seen and moe_ms else None,
-                top_kernels=[dict(name=k[:90], count=c, ms=ms)
-                             for k, c, ms in kern[:10]])
+                if seen and moe_ms else None)
 
 
 # --------------------------------------------------------------------- #
@@ -1667,6 +1722,267 @@ def phase_paged_vs_dense(device, scale: float = 1.0, cell: str = "serve"):
                 logits_absmax=float(want.abs().max()))
 
 
+# --------------------------------------------------------------------- #
+# The ssm, hybrid, audio and vlm families (no server in the reference: the
+# LM interface itself).
+# --------------------------------------------------------------------- #
+def family_config(arch: str, scale: float, compute_dtype: str,
+                  param_dtype: str | None = None):
+    """``arch`` as ``get_config`` gives it (``reduced_config``'s below
+    scale 1, for CPU rehearsals), in ``compute_dtype``."""
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = get_config(arch)
+    if scale < 1:
+        cfg = reduced_config(cfg)
+    return dataclasses.replace(cfg, compute_dtype=compute_dtype,
+                               param_dtype=param_dtype or cfg.param_dtype)
+
+
+def family_batch(cfg, b: int, s: int, device, generate: bool):
+    """Tokens from SEED and, for the vlm, ``image_embeds [b, N, d]`` (fp32,
+    drawn on the device from SEED).  For generation, audio draws ``[b, s,
+    K]`` and sequence 1 is a copy of sequence 0 (tokens and image); for the
+    consistency contract, audio repeats ``[b, s]`` over the codebooks, as
+    tests/test_models.py does."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    audio = cfg.family == "audio"
+    tok = rng.integers(0, cfg.vocab_size, (b, s, cfg.num_codebooks)
+                       if audio and generate else (b, s))
+    if audio and not generate:
+        tok = np.repeat(tok[..., None], cfg.num_codebooks, -1)
+    if generate:
+        tok[1] = tok[0]
+    batch = {"tokens": torch.from_numpy(tok).to(device)}
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        img = torch.randn((b, cfg.num_image_tokens, cfg.d_model),
+                          generator=gen, device=device)
+        if generate:
+            img[1] = img[0]
+        batch["image_embeds"] = img
+    return batch
+
+
+def open_cross_gates(params) -> None:
+    """The vlm's two tanh gates per cross block are zero at init, which
+    would leave the cross blocks inert: set them to FAMILY_VLM_GATES."""
+    for cp in params.get("cross_layers", ()):
+        cp["xattn"]["gate"].fill_(FAMILY_VLM_GATES["gate"])
+        cp["mlp_gate"].fill_(FAMILY_VLM_GATES["mlp_gate"])
+
+
+def shapes_of(tree):
+    """``(shape, dtype)`` of every tensor of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: shapes_of(v) for k, v in tree.items()}
+    return (tuple(tree.shape), tree.dtype)
+
+
+def timed_blocks(fns, device):
+    """Wrap the named block functions of ``repro_torch.models.blocks`` so
+    each call is timed (synchronised before and after); returns the
+    seconds and calls per name, and a function that unwraps them."""
+    from repro_torch.models import blocks as B
+
+    spent = {n: {"s": 0.0, "calls": 0} for n in fns}
+    inner = {n: getattr(B, n) for n in fns}
+
+    def wrap(name):
+        def timed(*a, **kw):
+            sync(device)
+            t = time.perf_counter()
+            out = inner[name](*a, **kw)
+            sync(device)
+            spent[name]["s"] += time.perf_counter() - t
+            spent[name]["calls"] += 1
+            return out
+        return timed
+
+    for n in fns:
+        setattr(B, n, wrap(n))
+
+    def restore():
+        for n in fns:
+            setattr(B, n, inner[n])
+
+    return spent, restore
+
+
+# The block functions of each family's prefill, timed one by one.
+FAMILY_BLOCKS = {
+    "ssm": ("mlstm_block_prefill", "slstm_block_prefill"),
+    "hybrid": ("mamba2_block_prefill", "dense_block_prefill"),
+    "audio": ("dense_block_prefill",),
+    "vlm": ("dense_block_prefill", "cross_block_apply"),
+}
+
+
+def family_generate(device, arch: str, scale: float = 1.0):
+    """Phase families (a): bf16 generation at full width.  FAMILY_GEN's
+    prompts (two identical), prefill to FAMILY_GEN's max_len, then greedy
+    decode steps (audio: the argmax per codebook); hard checks: finite
+    logits, identical tokens for the identical prompts, the cache laid out
+    as ``cache_specs``.  Then a traced window of decode steps re-decoding
+    the cache's last positions (the same work as the run's last steps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import LM
+
+    g = dict(FAMILY_GEN)
+    if scale < 1:
+        g.update(prompt_len=24, new=6, profile_steps=3)
+    cfg = family_config(arch, scale, "bfloat16", param_dtype="bfloat16")
+    model = LM(cfg, device=device)
+    sync(device)  # a CUDA context before the peak is reset
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    params = model._cast(init_params(model, device))
+    open_cross_gates(params)
+    sync(device)
+    init_s = time.perf_counter() - t
+    b, s = g["batch"], g["prompt_len"]
+    max_len = s + g["new"]
+    batch = family_batch(cfg, b, s, device, generate=True)
+
+    spent, restore = timed_blocks(FAMILY_BLOCKS[cfg.family], device)
+    try:
+        sync(device)
+        t = time.perf_counter()
+        cache, logits = model.prefill(params, batch, max_len=max_len)
+        sync(device)
+        prefill_s = time.perf_counter() - t
+    finally:
+        restore()
+    want = model.cache_specs(b, max_len)
+    if shapes_of(cache) != want:
+        raise AssertionError(f"{arch}: the cache is laid out as "
+                             f"{shapes_of(cache)}, not as {want}")
+
+    finite = torch.isfinite(logits).all()
+    toks = [logits.argmax(dim=-1)]
+    lengths = torch.full((b,), s, dtype=torch.int32, device=device)
+    sync(device)
+    t = time.perf_counter()
+    for i in range(g["new"]):
+        logits, cache = model.decode_step(params, cache, {
+            "tokens": toks[-1], "lengths": lengths + i})
+        finite &= torch.isfinite(logits).all()
+        toks.append(logits.argmax(dim=-1))
+    sync(device)
+    decode_s = time.perf_counter() - t
+    gen = torch.stack(toks, dim=1).cpu()  # [B, new + 1 (, K)]
+    if not bool(finite):
+        raise AssertionError(f"{arch}: non-finite logits")
+    if not torch.equal(gen[0], gen[1]):
+        raise AssertionError(f"{arch}: identical prompts generated "
+                             f"different tokens")
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+
+    n = g["profile_steps"]
+    acts = [ProfilerActivity.CUDA if device.type == "cuda"
+            else ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        sync(device)
+        t = time.perf_counter()
+        for i in range(g["new"] - n, g["new"]):
+            model.decode_step(params, cache, {"tokens": toks[i],
+                                              "lengths": lengths + i})
+        sync(device)
+        wall = time.perf_counter() - t
+    profile_line = window_line(device_kernels(prof), wall, n)
+    return dict(
+        arch=arch, family=cfg.family, layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=cfg.num_heads,
+        kv_heads=cfg.num_kv_heads, vocab=cfg.vocab_size,
+        param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+        params_gb=tensor_gb(params), cache_gb=tensor_gb(cache),
+        batch=b, prompt_len=s, max_len=max_len, new_tokens=g["new"],
+        init_s=init_s, prefill_s=prefill_s,
+        prefill_blocks={k: v for k, v in spent.items() if v["calls"]},
+        decode_s=decode_s, decode_ms_per_step=decode_s * 1e3 / g["new"],
+        decode_tokens_per_s=b * g["new"] / decode_s, peak_mem_gb=peak,
+        decode_profile=profile_line)
+
+
+def family_consistency(device, arch: str, scale: float = 1.0):
+    """Phase families (b): tests/test_models.py's consistency contract in
+    fp32 at full width: the backbone's logits at position S-2 against
+    ``prefill(tokens[:S-1])``'s (rtol = atol = 2e-4), one ``decode_step``
+    against the backbone at S-1 (2e-3), and a finite ``loss``; each
+    comparison recorded with the logits' RMS and the error."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import LM
+
+    c = dict(FAMILY_CHECK)
+    if scale < 1:
+        c.update(seq=12)
+    cfg = family_config(arch, scale, "float32")
+    model = LM(cfg, device=device)
+    params = init_params(model, device)
+    open_cross_gates(params)
+    b, s = c["batch"], c["seq"]
+    batch = family_batch(cfg, b, s, device, generate=False)
+    batch["labels"] = batch["tokens"]
+    with torch.no_grad():
+        x, _ = model.backbone(params, model._embed(params, batch["tokens"]),
+                              batch)
+        # The final norm again, as tests/test_models.py::_full_logits does.
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        full = model._logits(params, x)
+        loss, aux = model.loss(params, batch)
+    pre = dict(batch, tokens=batch["tokens"][:, :s - 1])
+    del pre["labels"]
+    cache, logits_pre = model.prefill(params, pre, max_len=s + 4)
+    logits_dec, _ = model.decode_step(params, cache, {
+        "tokens": batch["tokens"][:, s - 1],
+        "lengths": torch.full((b,), s - 1, dtype=torch.int32,
+                              device=device)})
+
+    def check(got, want, tol):
+        err = (got - want).abs()
+        return dict(max_abs_err=float(err.max()),
+                    held=bool((err <= tol + tol * want.abs()).all()),
+                    tolerance=tol,
+                    logits_rms=float(want.square().mean().sqrt()))
+
+    out = dict(batch=b, seq=s, params_gb=tensor_gb(params),
+               prefill=check(logits_pre, full[:, s - 2], c["prefill_tol"]),
+               decode=check(logits_dec, full[:, s - 1], c["decode_tol"]),
+               loss=float(loss), xent=float(aux["xent"]))
+    if not all(torch.isfinite(t).all() for t in (full, logits_pre,
+                                                  logits_dec, loss)):
+        raise AssertionError(f"{arch}: non-finite fp32 logits or loss")
+    if not (out["prefill"]["held"] and out["decode"]["held"]):
+        raise AssertionError(f"{arch}: prefill or decode != the full "
+                             f"forward: {out}")
+    return out
+
+
+def phase_families(device, scale: float = 1.0):
+    """Phase families: each of FAMILY_ARCHS at full width and depth, random
+    weights from SEED: (a) bf16 generation, (b) the fp32 consistency
+    contract; each model freed before the next allocates."""
+    out = {}
+    for arch in FAMILY_ARCHS:
+        t = time.perf_counter()
+        gen = family_generate(device, arch, scale)
+        free_device(device)
+        chk = family_consistency(device, arch, scale)
+        free_device(device)
+        out[arch] = dict(seconds=time.perf_counter() - t, generate=gen,
+                         consistency=chk)
+    return out
+
+
 def phase_parity(device, scale: float = 1.0):
     """Phase 4: CUDA engine vs the scalar oracle at the §7 rack width."""
     import numpy as np
@@ -2253,6 +2569,10 @@ def main() -> int:
         emit({"phase": "paged_vs_dense",
               **phase_paged_vs_dense(device, cell=cell)})
         free_device(device)
+    t = time.perf_counter()
+    families = phase_families(device)
+    emit({"phase": "families", "seconds": time.perf_counter() - t,
+          "nvidia_smi": smi, **families})
     emit({"phase": "parity", "cells": phase_parity(device)})
     main_run = phase_main(device)
     emit({"phase": "main", **main_run})

@@ -52,25 +52,44 @@ def lane_inputs_to_device(nwaves, dkc, slot, blade, write, valid, ptype, w0,
               for a in (ptype, w0, rw, bit, dirrows, cmask, planes)))
 
 
+# The stacked layer arrays of each family's JAX pytree, by key: 1 leading
+# axis (layers), or 2 (groups, then layers in a group).
+LAYER_STACKS = {
+    "dense": {"layers": 1}, "moe": {"layers": 1}, "audio": {"layers": 1},
+    "vlm": {"self_layers": 2, "cross_layers": 1},
+    "ssm": {"mlstm": 2, "slstm": 1},
+    "hybrid": {"mamba": 2, "mamba_tail": 1},
+}
+
+
 def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     """The port's ``LM`` parameters from the JAX package's ``LM.init``
-    pytree, given as nested dicts of NumPy arrays with the layers stacked on
-    axis 0 (dense and MoE families).  Every array goes through float32
-    (exact for bfloat16 and float16 values) to ``cfg.param_dtype`` on
-    ``device``, except an MoE ``router``, which stays float32 as the JAX
-    init made it; the stacked ``layers`` (expert stacks ``[L, E, ...]``
-    included) become a list of per-layer dicts."""
+    pytree for ``cfg``'s family, given as nested dicts of NumPy arrays.
+
+    Every array keeps the dtype the JAX init gave it (float32, bfloat16 or
+    float16; through float32, which holds the other two exactly), so the
+    leaves the reference draws in fp32 whatever ``param_dtype`` is (the MoE
+    router, the gate biases, ``a_log``, ``d_skip``, ``dt_bias``) stay fp32.
+    The layer stacks become lists (``LAYER_STACKS``): one stacked axis a
+    list of per-layer dicts, two a list of groups of them."""
     from repro_torch.models.layers import _dtype
 
-    dt = _dtype(cfg.param_dtype)
-
-    def conv(node, layer=None, name=None):
+    def conv(node, idx=()):
         if isinstance(node, dict):
-            return {k: conv(v, layer, k) for k, v in node.items()}
+            return {k: conv(v, idx) for k, v in node.items()}
         a = np.asarray(node)
-        return to_device((a if layer is None else a[layer]).astype(np.float32),
-                         torch.float32 if name == "router" else dt, device)
+        # np.array keeps a 0-d leaf (the vlm's gates) 0-d.
+        t = torch.from_numpy(np.array(a[idx], dtype=np.float32))
+        return t.to(device=device, dtype=_dtype(a.dtype.name))
 
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [conv(tree["layers"], i) for i in range(cfg.num_layers)]
-    return out
+    def unstack(node, depth, idx=()):
+        if depth == 0:
+            return conv(node, idx)
+        leaf = node
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        n = np.shape(leaf)[len(idx)]
+        return [unstack(node, depth - 1, (*idx, i)) for i in range(n)]
+
+    stacks = LAYER_STACKS[cfg.family]
+    return {k: unstack(v, stacks.get(k, 0)) for k, v in tree.items()}

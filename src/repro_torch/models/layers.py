@@ -10,7 +10,7 @@ both packages compute the same function on the same weights:
 
 Initialisers draw from an explicit :class:`torch.Generator` on the device
 that will hold the weights.  Only the 2-D projection layout is ported
-(``LM`` refuses a config with ``attn_3d_kernels``).
+(``LM`` refuses a config with ``attn_3d_kernels``, ROADMAP.md A8.3).
 """
 
 from __future__ import annotations
@@ -89,7 +89,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # --------------------------------------------------------------------- #
 # Attention (GQA / MQA / MHA, optional qk-norm).
 # --------------------------------------------------------------------- #
-def attention_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def attention_params(gen: torch.Generator, cfg: ModelConfig,
+                     cross: bool = False) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     dt = _dtype(cfg.param_dtype)
     p = {
@@ -101,17 +102,24 @@ def attention_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros((hd,), dtype=dt, device=gen.device)
         p["k_norm"] = torch.zeros((hd,), dtype=dt, device=gen.device)
+    if cross:
+        p["kv_norm"] = torch.zeros((d,), dtype=dt, device=gen.device)
+        # tanh-gated residual (llama-vision): a scalar.
+        p["gate"] = torch.zeros((), dtype=dt, device=gen.device)
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
-    """q ``[B, S, Hq, hd]``, k/v ``[B, S, Hkv, hd]``; qk-norm after the
-    projection, before RoPE."""
+def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
+    """q ``[B, S, Hq, hd]``, k/v ``[B, Sk, Hkv, hd]`` (k/v from ``kv_x``
+    when given, for cross attention); qk-norm after the projection, before
+    RoPE."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    kv_in = x if kv_x is None else kv_x
+    sk = kv_in.shape[1]
     q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    k = (kv_in @ p["wk"]).reshape(b, sk, cfg.num_kv_heads, hd)
+    v = (kv_in @ p["wv"]).reshape(b, sk, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -121,6 +129,12 @@ def _project_qkv(p, cfg: ModelConfig, x):
 def _out_proj(p, o_flat):
     """o_flat: ``[B, S, Hq*hd]`` @ wo."""
     return o_flat @ p["wo"]
+
+
+def attention(p, cfg: ModelConfig, x, positions):
+    """Full-sequence causal attention (training): ``attention_with_kv``'s
+    output without its K/V."""
+    return attention_with_kv(p, cfg, x, positions)[0]
 
 
 def attention_with_kv(p, cfg: ModelConfig, x, positions, *, max_len=None):
@@ -174,11 +188,27 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, position):
     return _out_proj(p, o), cache_k, cache_v
 
 
+def cross_attention(p, cfg: ModelConfig, x, image_embeds):
+    """Cross attention (vlm): queries from the text, K/V from the
+    (RMS-normed) image embeddings, no RoPE, no mask; the output scaled by
+    ``tanh(gate)`` as in llama-3.2-vision."""
+    from repro_torch.models.chunked_attention import chunked_attention
+
+    kv = rmsnorm(image_embeds, p["kv_norm"], cfg.norm_eps)
+    q, k, v = _project_qkv(p, cfg, x, kv_x=kv)
+    o = chunked_attention(q, k, v, causal=False)
+    b, s = x.shape[:2]
+    out = _out_proj(p, o.reshape(b, s, -1))
+    return torch.tanh(p["gate"].float()).to(out.dtype) * out
+
+
 # --------------------------------------------------------------------- #
 # MLP (SwiGLU / GeGLU / GeLU).
 # --------------------------------------------------------------------- #
-def mlp_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_params(gen: torch.Generator, cfg: ModelConfig,
+               d_ff: int | None = None) -> dict:
+    d = cfg.d_model
+    ff = d_ff if d_ff is not None else cfg.d_ff
     dt = _dtype(cfg.param_dtype)
     if cfg.activation in ("swiglu", "geglu"):
         return {

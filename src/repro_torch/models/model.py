@@ -1,22 +1,41 @@
-"""The language model for the dense and MoE families (plain PyTorch).
+"""The language model over every family of the reference (plain PyTorch).
 
-The counterpart of ``repro/models/model.py``'s ``LM`` for
-``family in ("dense", "moe")``, with its functional interface:
+The counterpart of ``repro/models/model.py``'s ``LM``, with its functional
+interface:
 
     init(generator)                    -> params
+    backbone(params, x, batch)         -> (final-normed hidden, aux)
+    loss(params, batch)                -> (scalar, {"xent", "aux"})
+    cache_specs(batch, max_len)        -> the cache's (shape, dtype) tree
+    init_cache(batch, max_len)         -> zero cache
     prefill(params, batch)             -> (cache, last_logits)
     decode_step(params, cache, batch)  -> (logits, cache)
-    init_cache(batch, max_len)         -> zero cache
+
+Families: dense and moe (a stack of transformer blocks), audio (the same
+stack over summed codebook embeddings with sinusoidal positions, one head
+per codebook), vlm (groups of self-attention blocks, each followed by a
+gated cross-attention block over the image embeddings), ssm (xLSTM: groups
+of mLSTM blocks, each followed by an sLSTM block) and hybrid (zamba2:
+groups of Mamba2 blocks, each followed by one weight-tied attention block,
+then a tail of Mamba2 blocks).
 
 Parameters are nested dicts of tensors, laid out as the JAX package lays
-them out (``[in, out]`` projections, ``[V, d]`` embedding) except that the
-layers are a list of per-layer dicts instead of arrays stacked on axis 0;
-``repro_torch.convert.lm_params_from_numpy`` carries the JAX pytree over.
-The layer scans become Python loops.  Every other family raises
-``NotImplementedError`` naming its ROADMAP item.  An MoE layer's router is
-fp32 in the parameters and, as in the reference, cast with the rest to the
-compute dtype (``_cast``); the routing then computes in fp32
-(``repro_torch.models.moe.moe_route``).
+them out (``[in, out]`` projections) except that the reference's stacked
+layers become lists: ``layers``, ``cross_layers``, ``slstm`` and
+``mamba_tail`` are lists of per-layer dicts; ``self_layers``, ``mlstm`` and
+``mamba`` lists of groups, each a list of per-layer dicts; ``shared_attn``
+is one dict.  ``repro_torch.convert.lm_params_from_numpy`` carries the JAX
+pytree over.  The layer scans become Python loops.  Caches keep the
+reference's stacked layout (``[G, P, B, ...]``, ``[G, B, ...]``, ``[L, B,
+...]``); ``decode_step`` updates the cache it is given in place (the JAX
+version returned an updated copy).
+
+``backbone`` and ``loss`` run under autograd; ``prefill`` and
+``decode_step`` under ``no_grad``.  Mixed precision as in the reference:
+``_cast`` casts every fp32 leaf to the compute dtype, the fp32-drawn gate
+biases, ``a_log``, ``d_skip``, ``dt_bias`` and the MoE router included.
+``attn_3d_kernels`` (the ``[d, H, hd]`` projections) raises: ROADMAP.md
+A8.3.
 """
 
 from __future__ import annotations
@@ -30,55 +49,132 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
-PORTED_FAMILIES = ("dense", "moe")
-UNPORTED_FAMILIES = {
-    f: (f"the {f} family is not ported yet: ROADMAP.md Queue A item 8 "
-        f"(A8.2: the ssm, hybrid, audio and vlm families)")
-    for f in ("ssm", "hybrid", "audio", "vlm")}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int, dtype):
+    """The reference's sinusoidal table ``[len(positions), d]`` at the given
+    rows only (sin on even columns, cos on odd), computed in fp32."""
+    pos = positions.float()[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32,
+                       device=positions.device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d)
+    out = torch.empty((pos.shape[0], d), dtype=torch.float32,
+                      device=positions.device)
+    out[:, 0::2] = torch.sin(angle)
+    out[:, 1::2] = torch.cos(angle)
+    return out.to(dtype)
+
+
+def _stack(spec, *dims):
+    """A per-layer cache spec stacked on leading ``dims``."""
+    return {k: ((*dims, *shape), dt) for k, (shape, dt) in spec.items()}
+
+
+def _at(node, *idx):
+    """One layer's cache, as views of the stacked tensors."""
+    return {k: v[idx] for k, v in node.items()}
+
+
+def _put(node, idx, state):
+    """Write one layer's state into the stacked cache."""
+    for k, v in state.items():
+        node[k][idx].copy_(v)
 
 
 class LM:
-    """Dense or MoE decoder-only LM on ``device`` (CUDA unless told
-    otherwise)."""
+    """A decoder of any family on ``device`` (CUDA unless told otherwise)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                UNPORTED_FAMILIES.get(cfg.family, f"family {cfg.family!r}"))
+        f = cfg.family
+        if f not in FAMILIES:
+            raise ValueError(f"unknown family {f!r}")
         if cfg.attn_3d_kernels:
             raise NotImplementedError(
                 "attn_3d_kernels ([d, H, hd] projections) is not ported: "
-                "ROADMAP.md Queue A item 8")
+                "ROADMAP.md Queue A item A8.3")
         self.cfg = cfg
         self.device = resolve_device(device, "LM")
+        # The grouped layouts of the interleaved families.
+        if f == "ssm":
+            if not cfg.slstm_every or cfg.num_layers % cfg.slstm_every:
+                raise ValueError("ssm needs num_layers a multiple of "
+                                 "slstm_every")
+            self.n_groups = cfg.num_layers // cfg.slstm_every
+            self.per_group = cfg.slstm_every - 1  # mLSTM blocks per group
+        elif f == "vlm":
+            if not cfg.cross_attn_every:
+                raise ValueError("vlm needs cross_attn_every")
+            self.n_groups = cfg.num_layers // cfg.cross_attn_every
+            self.per_group = cfg.cross_attn_every
+        elif f == "hybrid":
+            if not cfg.shared_attn_every:
+                raise ValueError("hybrid needs shared_attn_every")
+            self.n_groups = cfg.num_layers // cfg.shared_attn_every
+            self.per_group = cfg.shared_attn_every
+            self.n_tail = cfg.num_layers - self.n_groups * self.per_group
 
     # ------------------------------------------------------------------ #
     # Parameters.
     # ------------------------------------------------------------------ #
     def init(self, generator: torch.Generator) -> dict:
-        """Random parameters in ``param_dtype``, drawn from ``generator``
-        (which must live on the model's device)."""
+        """Random parameters in ``param_dtype`` (the few leaves the
+        reference draws in fp32 stay fp32), drawn from ``generator``, which
+        must live on the model's device."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
-        cfg = self.cfg
+        cfg, gen = self.cfg, generator
         dt = L._dtype(cfg.param_dtype)
-        p: dict = {
-            "final_norm": torch.zeros((cfg.d_model,), dtype=dt,
-                                      device=self.device),
-            "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt),
-        }
+        f = cfg.family
+        audio = f == "audio"
+        p: dict = {"final_norm": torch.zeros((cfg.d_model,), dtype=dt,
+                                             device=self.device)}
+        if audio:
+            p["embed"] = torch.stack([
+                L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+                for _ in range(cfg.num_codebooks)])  # [K, V, d]
+        else:
+            p["embed"] = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
         if not cfg.tie_embeddings:
-            p["lm_head"] = L.dense_init(generator, cfg.d_model,
-                                        cfg.vocab_size, dt)
-        p["layers"] = [B.dense_block_params(generator, cfg)
-                       for _ in range(cfg.num_layers)]
+            if audio:
+                p["lm_head"] = torch.stack([
+                    L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
+                    for _ in range(cfg.num_codebooks)])  # [K, d, V]
+            else:
+                p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                            dt)
+
+        def groups(make):
+            return [[make(gen, cfg) for _ in range(self.per_group)]
+                    for _ in range(self.n_groups)]
+
+        if f in ("dense", "moe", "audio"):
+            p["layers"] = [B.dense_block_params(gen, cfg)
+                           for _ in range(cfg.num_layers)]
+        elif f == "vlm":
+            p["self_layers"] = groups(B.dense_block_params)
+            p["cross_layers"] = [B.cross_block_params(gen, cfg)
+                                 for _ in range(self.n_groups)]
+        elif f == "ssm":
+            p["mlstm"] = groups(B.mlstm_block_params)
+            p["slstm"] = [B.slstm_block_params(gen, cfg)
+                          for _ in range(self.n_groups)]
+        elif f == "hybrid":
+            p["mamba"] = groups(B.mamba2_block_params)
+            if self.n_tail:
+                p["mamba_tail"] = [B.mamba2_block_params(gen, cfg)
+                                   for _ in range(self.n_tail)]
+            p["shared_attn"] = B.dense_block_params(gen, cfg)  # weight-tied
         return p
 
     def _cast(self, params):
-        """Mixed precision: fp32 parameters compute in ``compute_dtype``
-        (the MoE router too, as in the reference).  Pure and idempotent, so a caller may cast once and keep the copy
-        (``PagedServer`` does); the numbers are those of a cast per call."""
+        """Mixed precision: every fp32 leaf computes in ``compute_dtype``
+        (the MoE router, the gate biases and the Mamba2 ``a_log``,
+        ``d_skip`` and ``dt_bias`` too, as in the reference).  Pure and
+        idempotent, so a caller may cast once and keep the copy
+        (``PagedServer`` does); the numbers are those of a cast per call.
+        Autograd flows through the cast."""
         cd = L._dtype(self.cfg.compute_dtype)
         if cd == torch.float32:
             return params
@@ -95,70 +191,287 @@ class LM:
     # ------------------------------------------------------------------ #
     # Embedding / head.
     # ------------------------------------------------------------------ #
-    def _embed(self, p, tokens):
+    def _embed(self, p, tokens, positions=None):
+        """tokens ``[B, S]`` (audio ``[B, S, K]``: the codebooks' embeddings
+        summed in order, plus sinusoidal positions, ``0..S-1`` or the
+        decode ``positions [B]``)."""
         cfg = self.cfg
-        x = p["embed"][tokens]
+        if cfg.family == "audio":
+            x = sum(p["embed"][i][tokens[:, :, i]]
+                    for i in range(cfg.num_codebooks))
+            if positions is None:
+                pos = torch.arange(x.shape[1], device=x.device)
+                x = x + sinusoidal_positions(pos, cfg.d_model, x.dtype)
+            else:
+                x = x + sinusoidal_positions(positions, cfg.d_model,
+                                             x.dtype)[:, None, :]
+        else:
+            x = p["embed"][tokens]
         if cfg.embed_scale:
             x = x * math.sqrt(cfg.d_model)
         return x.to(L._dtype(cfg.compute_dtype))
 
     def _head_matrix(self, p):
+        """``[d, V]``, or audio's ``[K, d, V]``."""
         if self.cfg.tie_embeddings:
-            return p["embed"].T  # [d, V]
+            return p["embed"].T
         return p["lm_head"]
 
     def _logits(self, p, x):
-        """fp32 products of the (compute-dtype) head: ``x [..., d]``."""
-        return x.float() @ self._head_matrix(p).float()
+        """fp32 products of the (compute-dtype) head: ``x [..., d]`` ->
+        ``[..., V]`` (audio ``[..., K, V]``)."""
+        head = self._head_matrix(p).float()
+        if self.cfg.family == "audio":
+            return torch.einsum("...d,kdv->...kv", x.float(), head)
+        return x.float() @ head
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _image(self, batch, dtype):
+        return torch.as_tensor(batch["image_embeds"],
+                               device=self.device).to(dtype)
+
     # ------------------------------------------------------------------ #
-    # Prefill / decode.
+    # Backbone (full sequence) and loss.
     # ------------------------------------------------------------------ #
-    def init_cache(self, batch: int, max_len: int):
-        spec = B.dense_cache_spec(self.cfg, batch, max_len)
-        return {"layers": {
-            name: torch.zeros((self.cfg.num_layers, *shape), dtype=dt,
-                              device=self.device)
-            for name, (shape, dt) in spec.items()}}
+    def backbone(self, p, x, batch):
+        """Every block over the whole sequence ``x [B, S, d]`` (params
+        already cast): ``(final-normed x, aux)``, aux the summed MoE
+        load-balance losses (0 without MoE)."""
+        cfg = self.cfg
+        f = cfg.family
+        positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), device=x.device)
+        if f in ("dense", "moe", "audio"):
+            for lp in p["layers"]:
+                x, ax = B.dense_block_train(lp, cfg, x, positions)
+                aux = aux + ax
+        elif f == "vlm":
+            img = self._image(batch, x.dtype)
+            for selfs, crossp in zip(p["self_layers"], p["cross_layers"]):
+                for lp in selfs:
+                    x, ax = B.dense_block_train(lp, cfg, x, positions)
+                    aux = aux + ax
+                x = B.cross_block_apply(crossp, cfg, x, img)
+        elif f == "ssm":
+            for mls, sls in zip(p["mlstm"], p["slstm"]):
+                for lp in mls:
+                    x = B.mlstm_block_train(lp, cfg, x)
+                x = B.slstm_block_train(sls, cfg, x)
+        elif f == "hybrid":
+            for group in p["mamba"]:
+                for lp in group:
+                    x = B.mamba2_block_train(lp, cfg, x)
+                x, ax = B.dense_block_train(p["shared_attn"], cfg, x,
+                                            positions)
+                aux = aux + ax
+            for lp in p.get("mamba_tail", ()):
+                x = B.mamba2_block_train(lp, cfg, x)
+        return L.rmsnorm(x, p["final_norm"], cfg.norm_eps), aux
+
+    def loss(self, params, batch, *, vocab_chunk: int = 512):
+        """Token cross entropy (labels < 0 masked) plus the MoE aux loss:
+        ``(loss, {"xent", "aux"})``.  The logits are computed in fp32 one
+        sequence chunk at a time, never ``[B, S, V]`` at once."""
+        params = self._cast(params)
+        x, aux = self.backbone(
+            params, self._embed(params, self._tokens(batch["tokens"])),
+            batch)
+        labels = self._tokens(batch["labels"])
+        s = x.shape[1]
+        nchunk = max(1, s // min(vocab_chunk, s))
+        cs = s // nchunk
+        if s % cs:
+            raise ValueError(f"sequence length {s} is not a multiple of its "
+                             f"chunk {cs}")
+        tot = torch.zeros((), device=x.device)
+        cnt = torch.zeros((), device=x.device)
+        for i in range(nchunk):
+            logits = self._logits(params, x[:, i * cs:(i + 1) * cs])
+            ls = labels[:, i * cs:(i + 1) * cs]
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1,
+                               ls.clamp(min=0)[..., None])[..., 0]
+            mask = (ls >= 0).float()
+            tot = tot + torch.sum((lse - tgt) * mask)
+            cnt = cnt + torch.sum(mask)
+        xent = tot / torch.clamp(cnt, min=1.0)
+        return xent + aux, {"xent": xent, "aux": aux}
+
+    # ------------------------------------------------------------------ #
+    # Caches, prefill and decode.
+    # ------------------------------------------------------------------ #
+    def cache_specs(self, batch: int, max_len: int) -> dict:
+        """The cache as ``(shape, dtype)`` leaves, laid out as the
+        reference's ``cache_specs``."""
+        cfg = self.cfg
+        f = cfg.family
+        dense = B.dense_cache_spec(cfg, batch, max_len)
+        if f in ("dense", "moe", "audio"):
+            return {"layers": _stack(dense, cfg.num_layers)}
+        if f == "vlm":
+            img = ((self.n_groups, batch, cfg.num_image_tokens,
+                    cfg.num_kv_heads, cfg.resolved_head_dim),
+                   L._dtype(cfg.compute_dtype))
+            return {"self_layers": _stack(dense, self.n_groups,
+                                          self.per_group),
+                    "cross_k": img, "cross_v": img}
+        if f == "ssm":
+            return {"mlstm": _stack(B.mlstm_cache_spec(cfg, batch),
+                                    self.n_groups, self.per_group),
+                    "slstm": _stack(B.slstm_cache_spec(cfg, batch),
+                                    self.n_groups)}
+        mamba = B.mamba2_cache_spec(cfg, batch)
+        out = {"mamba": _stack(mamba, self.n_groups, self.per_group),
+               "attn": _stack(dense, self.n_groups)}
+        if self.n_tail:
+            out["mamba_tail"] = _stack(mamba, self.n_tail)
+        return out
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        def zeros(node):
+            if isinstance(node, dict):
+                return {k: zeros(v) for k, v in node.items()}
+            shape, dt = node
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        return zeros(self.cache_specs(batch, max_len))
 
     @torch.no_grad()
     def prefill(self, params, batch, *, max_len: int | None = None):
         """Process the prompt, returning ``(cache, last-position logits)``.
 
-        batch: ``{"tokens": [B, S]}``.  The cache is ``{"layers": {"k":
-        [L, B, max_len or S, Hkv, hd], "v": ...}}``.
+        batch: ``tokens [B, S]`` (audio ``[B, S, K]``), and for the vlm
+        ``image_embeds [B, N, d]``.  The cache is laid out as
+        ``cache_specs(B, max_len or S)``.
         """
         cfg = self.cfg
+        f = cfg.family
         params = self._cast(params)
         x = self._embed(params, self._tokens(batch["tokens"]))
-        s = x.shape[1]
+        b, s = x.shape[:2]
         ml = max_len or s
         positions = torch.arange(s, device=self.device)
-        ks, vs = [], []
-        for lp in params["layers"]:
-            x, k, v = B.dense_block_prefill(lp, cfg, x, positions, ml)
-            ks.append(k)
-            vs.append(v)
-        cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        cache = self.init_cache(b, ml)
+
+        def attn(lp, h, node, idx):
+            h, k, v = B.dense_block_prefill(lp, cfg, h, positions, ml)
+            _put(node, idx, {"k": k, "v": v})
+            return h
+
+        def state(block, lp, h, node, idx):
+            h, st = block(lp, cfg, h)
+            _put(node, idx, st)
+            return h
+
+        if f in ("dense", "moe", "audio"):
+            for i, lp in enumerate(params["layers"]):
+                x = attn(lp, x, cache["layers"], i)
+        elif f == "vlm":
+            img = self._image(batch, x.dtype)
+            hd = cfg.resolved_head_dim
+            for g, (selfs, crossp) in enumerate(zip(params["self_layers"],
+                                                    params["cross_layers"])):
+                for i, lp in enumerate(selfs):
+                    x = attn(lp, x, cache["self_layers"], (g, i))
+                # The cross block's static image K/V (no qk-norm, as in the
+                # reference's cache).
+                xa = crossp["xattn"]
+                kvn = L.rmsnorm(img, xa["kv_norm"], cfg.norm_eps)
+                cache["cross_k"][g] = (kvn @ xa["wk"]).reshape(
+                    b, -1, cfg.num_kv_heads, hd)
+                cache["cross_v"][g] = (kvn @ xa["wv"]).reshape(
+                    b, -1, cfg.num_kv_heads, hd)
+                x = B.cross_block_apply(crossp, cfg, x, img)
+        elif f == "ssm":
+            for g, (mls, sls) in enumerate(zip(params["mlstm"],
+                                               params["slstm"])):
+                for i, lp in enumerate(mls):
+                    x = state(B.mlstm_block_prefill, lp, x, cache["mlstm"],
+                              (g, i))
+                x = state(B.slstm_block_prefill, sls, x, cache["slstm"], g)
+        elif f == "hybrid":
+            for g, group in enumerate(params["mamba"]):
+                for i, lp in enumerate(group):
+                    x = state(B.mamba2_block_prefill, lp, x, cache["mamba"],
+                              (g, i))
+                x = attn(params["shared_attn"], x, cache["attn"], g)
+            for i, lp in enumerate(params.get("mamba_tail", ())):
+                x = state(B.mamba2_block_prefill, lp, x, cache["mamba_tail"],
+                          i)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return cache, self._logits(params, x[:, -1])
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch):
-        """One token for every sequence.  batch: ``tokens [B]``, ``lengths
-        [B]``.  Returns ``(logits [B, V], cache)``; the cache is updated in
-        place (the JAX version returned an updated copy)."""
+        """One token for every sequence.  batch: ``tokens [B]`` (audio ``[B,
+        K]``), ``lengths [B]``.  Returns ``(logits [B, V] (audio [B, K, V]),
+        cache)``; the cache is updated in place."""
         cfg = self.cfg
+        f = cfg.family
         params = self._cast(params)
         tokens = self._tokens(batch["tokens"])
         lengths = self._tokens(batch["lengths"])
-        x = self._embed(params, tokens[:, None])
-        ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-        for i, lp in enumerate(params["layers"]):
-            x, _ = B.dense_block_decode(lp, cfg, x, {"k": ck[i], "v": cv[i]},
-                                        lengths)
+        x = self._embed(params, tokens[:, None], positions=lengths)
+
+        def attn(lp, h, node, idx):
+            return B.dense_block_decode(lp, cfg, h, _at(node, *idx),
+                                        lengths)[0]
+
+        def state(block, lp, h, node, idx):
+            h, st = block(lp, cfg, h, _at(node, *idx))
+            _put(node, idx, st)
+            return h
+
+        if f in ("dense", "moe", "audio"):
+            for i, lp in enumerate(params["layers"]):
+                x = attn(lp, x, cache["layers"], (i,))
+        elif f == "vlm":
+            for g, (selfs, crossp) in enumerate(zip(params["self_layers"],
+                                                    params["cross_layers"])):
+                for i, lp in enumerate(selfs):
+                    x = attn(lp, x, cache["self_layers"], (g, i))
+                # Cross attention against the image K/V of prefill.
+                hq = L.rmsnorm(x, crossp["norm"], cfg.norm_eps)
+                x = x + _cross_decode(crossp["xattn"], cfg, hq,
+                                      cache["cross_k"][g],
+                                      cache["cross_v"][g])
+                x = B._gated_mlp(crossp, cfg, x)
+        elif f == "ssm":
+            for g, (mls, sls) in enumerate(zip(params["mlstm"],
+                                               params["slstm"])):
+                for i, lp in enumerate(mls):
+                    x = state(B.mlstm_block_decode, lp, x, cache["mlstm"],
+                              (g, i))
+                x = state(B.slstm_block_decode, sls, x, cache["slstm"], (g,))
+        elif f == "hybrid":
+            for g, group in enumerate(params["mamba"]):
+                for i, lp in enumerate(group):
+                    x = state(B.mamba2_block_decode, lp, x, cache["mamba"],
+                              (g, i))
+                x = attn(params["shared_attn"], x, cache["attn"], (g,))
+            for i, lp in enumerate(params.get("mamba_tail", ())):
+                x = state(B.mamba2_block_decode, lp, x, cache["mamba_tail"],
+                          (i,))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x)[:, 0], cache
+
+
+def _cross_decode(p, cfg: ModelConfig, x, ck, cv):
+    """Cross attention for decode: x ``[B, 1, d]`` against the image K/V
+    ``[B, N, Hkv, hd]`` cached at prefill; q is not qk-normed, as in the
+    reference's decode."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, 1, cfg.num_heads, hd)
+    hkv = cfg.num_kv_heads
+    g = cfg.num_heads // hkv
+    qg = q.reshape(b, 1, hkv, g, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          ck.float()) / math.sqrt(hd)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w, cv.float())
+    o = o.reshape(b, 1, cfg.num_heads * hd).to(x.dtype)
+    out = L._out_proj(p, o)
+    return torch.tanh(p["gate"].float()).to(out.dtype) * out

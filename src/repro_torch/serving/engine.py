@@ -50,6 +50,9 @@ class PagedServer:
                  prefix_share: bool = True, num_replicas: int = 1,
                  device=None):
         cfg = model.cfg
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError("the paged serving path takes the per-layer-KV "
+                             "families (dense, moe)")
         self.device = resolve_device(device, "PagedServer")
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the server "

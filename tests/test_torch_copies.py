@@ -51,17 +51,34 @@ TRIMMED = {
     "dataplane/__init__.py": (("BatchedDataPlane", "build_wave_schedule",
                                "BASELINE_PHASES", "GamBatchedReplay",
                                "FastswapBatchedReplay"), ("jax", "jnp")),
-    # The dense/MoE block only; xLSTM, Mamba2 and cross-attention blocks
-    # come with their families.
-    "models/blocks.py": (("dense_block_params", "dense_block_prefill",
-                          "dense_block_decode", "dense_cache_spec",
-                          "moe_params", "moe_ffn"),
-                         ("linear_recurrence",)),
-    # LM for the dense and MoE families only: the other families raise.
+    # Every family's blocks, with the names of the reference's; the dense
+    # decode writes its K/V in place, the recurrent ones return their state.
+    "models/blocks.py": (("dense_block_params", "dense_block_train",
+                          "dense_block_prefill", "dense_block_decode",
+                          "dense_cache_spec", "cross_block_params",
+                          "cross_block_apply", "_mlstm_dims",
+                          "mlstm_block_params", "_mlstm_qkv_gates",
+                          "mlstm_block_train", "mlstm_block_prefill",
+                          "mlstm_block_decode", "mlstm_cache_spec",
+                          "slstm_block_params", "_slstm_cell",
+                          "slstm_block_train", "slstm_block_prefill",
+                          "slstm_block_decode", "slstm_cache_spec",
+                          "_mamba_dims", "mamba2_block_params",
+                          "_mamba_split", "_causal_conv",
+                          "_causal_conv_with_state", "mamba2_block_train",
+                          "mamba2_block_prefill", "mamba2_block_decode",
+                          "mamba2_cache_spec", "moe_params", "moe_ffn",
+                          "linear_recurrence"),
+                         ("jax", "jnp")),
+    # LM for all six families, with loops for the layer scans.
     "models/model.py": (("class LM", "def init", "def _cast", "def _embed",
-                         "def _head_matrix", "def prefill",
-                         "def decode_step", "def init_cache", '"moe"'),
-                        ("linear_recurrence",)),
+                         "def _head_matrix", "def backbone", "def loss",
+                         "def cache_specs", "def init_cache", "def prefill",
+                         "def decode_step", "def _cross_decode",
+                         "def sinusoidal_positions", '"dense"', '"moe"',
+                         '"ssm"', '"hybrid"', '"audio"', '"vlm"',
+                         "n_groups", "per_group", "n_tail"),
+                        ("jax", "jnp")),
 }
 
 
@@ -96,6 +113,7 @@ def test_every_port_module_is_copied_trimmed_or_ported():
               "kernels/flash_attention.py", "kernels/moe_experts.py",
               "models/__init__.py", "models/layers.py",
               "models/chunked_attention.py", "models/moe.py",
+              "models/linear_recurrence.py",
               "memory/__init__.py", "memory/paged_pool.py",
               "serving/__init__.py", "serving/engine.py",
               "launch/__init__.py", "launch/serve.py"}

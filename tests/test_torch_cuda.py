@@ -896,3 +896,57 @@ def test_moe_server_on_cuda_equals_cpu(cuda, monkeypatch):
     assert cr == {"wmma": 0, "simt": 0}
     assert gr == {"wmma": 0,
                   "simt": cfg.num_layers * (len(tails) + gs["steps"])}
+
+
+# --------------------------------------------------------------------- #
+# The ssm, hybrid, audio and vlm families (eager torch ops, no kernel of
+# their own): the card's run equals the CPU's.
+# --------------------------------------------------------------------- #
+def _family_batch(cfg, rng, b, s):
+    shape = (b, s, cfg.num_codebooks) if cfg.family == "audio" else (b, s)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+    batch = {"tokens": tok, "labels": tok}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    return [tree]
+
+
+@pytest.mark.parametrize("arch,layers", [("xlstm-1.3b", None),
+                                         ("zamba2-1.2b", 5),
+                                         ("musicgen-large", None),
+                                         ("llama-3.2-vision-11b", None)])
+def test_family_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers):
+    """Reduced, fp32 (TF32 off): loss, prefill (logits and cache) and one
+    decode step (logits and cache) at 1e-4; S 20 pads the recurrences'
+    chunk of 16, and the 5-layer hybrid has a Mamba2 tail."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              compute_dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    batch = _family_batch(cfg, np.random.default_rng(3), 2, 20)
+    tok = batch["tokens"][:, -1]
+    out = {}
+    for dev in ("cpu", cuda):
+        m = LM(cfg, device=dev)
+        p = _to(params, dev)
+        b = _to(batch, dev)
+        loss, _ = m.loss(p, b)
+        cache, pre = m.prefill(p, {k: v for k, v in b.items()
+                                   if k != "labels"}, max_len=24)
+        pre_cache = [c.clone() for c in _flat(cache)]
+        dec, cache = m.decode_step(p, cache, {
+            "tokens": tok.to(dev),
+            "lengths": torch.full((2,), 20, dtype=torch.int32, device=dev)})
+        out[str(dev)] = [loss, pre, *pre_cache, dec, *_flat(cache)]
+    for c, g in zip(out["cpu"], out[str(cuda)]):
+        assert g.device.type == "cuda" and g.dtype == c.dtype
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
