@@ -119,6 +119,26 @@ exits nonzero):
               against prefill's (2e-4) and one decode step against S-1
               (2e-3), both hard checks, recorded with the logits' RMS; a
               finite loss.
+   train    — (a) gemma-2b at full width (vocab capped at 32,768 by the
+              launcher; 2.05 B parameters, fp32 params and AdamW moments,
+              bf16 compute) through repro_torch.launch.train.run: 20 steps
+              of B 8 x S 1,024, 2 microbatches, remat, no checkpoints;
+              hard checks: finite losses and grad norms, the last 5
+              losses' mean below the first 5's, and (on a fresh model) a
+              finite gradient of its shape on every leaf; step ms (median
+              of steps 5-19), tokens/s, model TFLOP/s (8 x params x tokens
+              / step), peak memory, AdamW's ms alone and its share, and a
+              traced window of 2 steps.  (b) the same widths cut to 2
+              layers: 8 steps against 4 + save + restore + 4 (rtol 1e-6,
+              atol 1e-7), then the launcher over 12 steps with --fail-at 6
+              --ckpt-every 4 (it must restore and finish); save and
+              restore s, GB written; the checkpoints in a temporary
+              directory under chiprun_out/, deleted.  (c) one train step
+              of each of FAMILY_ARCHS cut to one group, B 2 x S 512:
+              forward, backward and AdamW s, a finite loss and gradients
+              (hard checks); the sLSTM block's forward and backward alone;
+              moonshot cut to 2 layers must raise moe_experts'
+              NotImplementedError under autograd.
 6. parity   — the CUDA engine against the port's scalar oracle on the
               MIND §7 rack (8 compute blades x 10 threads, rack defaults):
               M_A and GC at 2,000 and TF at 1,000 accesses per thread.
@@ -183,6 +203,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -275,6 +296,22 @@ FAMILY_GEN = dict(batch=8, prompt_len=512, new=64, profile_steps=8)
 FAMILY_CHECK = dict(batch=2, seq=128, prefill_tol=2e-4, decode_tol=2e-3)
 # The vlm's cross-attention and cross-MLP tanh gates (zero at init).
 FAMILY_VLM_GATES = dict(gate=-0.6, mlp_gate=0.5)
+# Phase train.  (a) gemma-2b at full width through the train launcher
+# (vocab capped at 32,768 by the launcher, fp32 params, bf16 compute):
+# steps timed from TRAIN["timed_from"], a traced window of 2 steps.  (b)
+# checkpoint and restart: gemma-2b at full width cut to 2 layers (~287 M
+# parameters, ~3.4 GB a checkpoint).  (c) one train step of each family
+# cut to one group (a cut forced by the phase's time), B 2 x S 512; and
+# moonshot cut to 2 layers must refuse autograd on the card.
+TRAIN = dict(arch="gemma-2b", batch=8, seq=1024, microbatches=2, steps=20,
+             timed_from=5, profile_steps=2)
+TRAIN_CKPT = dict(layers=2, batch=4, seq=256, steps=8, launcher_steps=12,
+                  fail_at=6, ckpt_every=4)
+TRAIN_FAMILIES = dict(batch=2, seq=512)
+TRAIN_MOE_LAYERS = 2
+# The model FLOPs of a step with remat: 6 per parameter and token, 2 more
+# for the recomputed forward.
+TRAIN_FLOPS_PER_PARAM_TOKEN = 6 + 2
 # Phase moe: moe_ffn against its plain version, per compute dtype (outputs
 # of order 1, compared in fp32).
 MOE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -1983,6 +2020,382 @@ def phase_families(device, scale: float = 1.0):
     return out
 
 
+# --------------------------------------------------------------------- #
+# Training (the launcher, the train step, AdamW, the checkpointer).
+# --------------------------------------------------------------------- #
+def train_config(arch: str, scale: float, layers: int | None = None):
+    """``arch`` as ``get_config`` gives it (``reduced_config``'s below scale
+    1), cut to ``layers`` if given, its vocabulary capped at 32,768 as the
+    train launcher caps it."""
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = get_config(arch)
+    if scale < 1:
+        cfg = reduced_config(cfg)
+    cfg = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size, 32768))
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+
+
+def param_leaves(params):
+    from repro_torch.optim import adamw
+
+    return [p for p, _ in adamw.leaves(params)]
+
+
+def check_grads(params, what: str) -> None:
+    """Every leaf has a finite gradient of its own shape."""
+    import torch
+
+    for i, p in enumerate(param_leaves(params)):
+        g = p.grad
+        if g is None or g.shape != p.shape or not bool(
+                torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: parameter leaf {i} {tuple(p.shape)}"
+                                 f" has gradient "
+                                 f"{None if g is None else tuple(g.shape)}, "
+                                 f"or a non-finite one")
+
+
+def train_full(device, scale: float = 1.0):
+    """Phase train (a): gemma-2b at full width through
+    ``repro_torch.launch.train.run`` (remat, 2 microbatches, no
+    checkpoints).  Hard checks: a finite loss and grad norm every step,
+    the mean of the last 5 losses below that of the first 5, and (on a
+    fresh model) a finite gradient of its shape on every leaf.  Records the
+    step time (median of the timed steps, each ending on the host's read of
+    its loss), tokens/s, model TFLOP/s, peak memory, AdamW's time alone and
+    its share of the step, and a traced window of 2 steps."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.train_loop import make_train_step
+
+    tr = dict(TRAIN)
+    argv = ["--arch", tr["arch"], "--device", str(device), "--remat",
+            "--seed", str(SEED), "--log-every", "5"]
+    if scale < 1:
+        argv.append("--reduced")
+        tr.update(batch=4, seq=32)
+    argv += ["--steps", str(tr["steps"]), "--batch", str(tr["batch"]),
+             "--seq", str(tr["seq"]), "--microbatches",
+             str(tr["microbatches"])]
+    args = launcher.parse_args(argv)
+    cfg = train_config(tr["arch"], scale)
+    sync(device)  # a CUDA context before the peak is reset
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    out = launcher.run(args)
+    run_s = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    losses, gnorms = out["losses"], out["grad_norms"]
+    if len(losses) != tr["steps"] or not all(
+            math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train: losses {losses}, grad norms {gnorms}")
+    first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"train: the loss did not fall: first 5 "
+                             f"{first}, last 5 {last} ({losses})")
+    step_s = statistics.median(out["step_s"][tr["timed_from"]:])
+    tokens = tr["batch"] * tr["seq"]
+    free_device(device)
+
+    # A fresh model: the gradients of one microbatch checked leaf by leaf,
+    # AdamW timed alone, then a traced window of whole steps.
+    model = LM(cfg, device=device, remat=True)
+    params = init_params(model, device)
+    n_params = sum(p.numel() for p in param_leaves(params))
+    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
+                          warmup_steps=max(1, args.steps // 20))
+    opt = adamw.init(params)
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=tr["seq"],
+                                      global_batch=tr["batch"], seed=SEED),
+                           cfg)
+    half = {k: torch.as_tensor(v[:tr["batch"] // tr["microbatches"]]).to(
+        device) for k, v in loader.batch(0).items()}
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    model.loss(params, half)[0].backward()
+    check_grads(params, f"train {tr['arch']}")
+    grads = adamw.tree_map(lambda p: p.grad, params)
+    adamw_ms = time_ms(lambda: adamw.update(opt_cfg, grads, opt, params), 3,
+                       device)
+    del grads
+    for p in param_leaves(params):
+        p.grad = None
+    step_fn = make_train_step(model, opt_cfg,
+                              microbatches=tr["microbatches"])
+    params, opt, _ = step_fn(params, opt, loader.batch(1))
+    n = tr["profile_steps"]
+    acts = [ProfilerActivity.CUDA if device.type == "cuda"
+            else ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        sync(device)
+        t = time.perf_counter()
+        for i in range(n):
+            params, opt, m = step_fn(params, opt, loader.batch(2 + i))
+        float(m["loss"])
+        wall = time.perf_counter() - t
+    flops = TRAIN_FLOPS_PER_PARAM_TOKEN * n_params * tokens
+    return dict(
+        arch=tr["arch"], layers=cfg.num_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=n_params,
+        param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+        params_gb=tensor_gb(params), batch=tr["batch"], seq=tr["seq"],
+        microbatches=tr["microbatches"], remat=True, steps=out["steps"],
+        run_s=run_s, losses=losses, grad_norms=gnorms,
+        first5_mean=first, last5_mean=last,
+        step_ms=step_s * 1e3, step_ms_all=[x * 1e3 for x in out["step_s"]],
+        tokens_per_s=tokens / step_s,
+        model_tflops=flops / step_s / 1e12,
+        model_tflops_share_of_989=flops / step_s / 989e12,
+        peak_mem_gb=peak, adamw_ms=adamw_ms,
+        adamw_share_of_step=adamw_ms / (step_s * 1e3),
+        stragglers=len(out["stragglers"]),
+        profile=window_line(device_kernels(prof), wall, n))
+
+
+def train_restart(device, scale: float = 1.0):
+    """Phase train (b): gemma-2b at full width cut to 2 layers.  8 steps
+    straight against 4 steps, a save, a restore and 4 more: every param
+    at rtol 1e-6, atol 1e-7 (the reference's bar).  Then the launcher with
+    an injected failure: it restores the last checkpoint and finishes.
+    Records the save and restore seconds and the bytes written; the
+    checkpoints go to a temporary directory under chiprun_out/, deleted
+    afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.train_loop import make_train_step
+
+    c = dict(TRAIN_CKPT)
+    if scale < 1:
+        c.update(seq=32)
+    cfg = train_config(TRAIN["arch"], scale, c["layers"])
+    model = LM(cfg, device=device, remat=True)
+    opt_cfg = AdamWConfig(total_steps=c["steps"],
+                          warmup_steps=max(1, c["steps"] // 20))
+    step_fn = make_train_step(model, opt_cfg)
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=c["seq"],
+                                      global_batch=c["batch"], seed=SEED),
+                           cfg)
+
+    def train(params, opt, lo, hi):
+        for s in range(lo, hi):
+            params, opt, _ = step_fn(params, opt, loader.batch(s))
+        return params, opt
+
+    params0 = init_params(model, device)
+    n_params = sum(p.numel() for p in param_leaves(params0))
+    clone = lambda t: t.detach().clone()  # noqa: E731
+    pa, _ = train(adamw.tree_map(clone, params0),
+                  adamw.init(params0), 0, c["steps"])
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=out_dir))
+    try:
+        ck = Checkpointer(tmp / "direct")
+        half = c["steps"] // 2
+        pb, ob = train(params0, adamw.init(params0), 0, half)
+        sync(device)
+        t = time.perf_counter()
+        d = ck.save(half, {"params": pb, "opt": ob})
+        save_s = time.perf_counter() - t
+        written = sum(f.stat().st_size for f in d.iterdir()) / 1e9
+        t = time.perf_counter()
+        state, step, _, _ = ck.restore({"params": pb, "opt": ob})
+        sync(device)
+        restore_s = time.perf_counter() - t
+        del pb, ob
+        pb, _ = train(state["params"], state["opt"], step, c["steps"])
+        err, held = 0.0, True
+        for a, b in zip(param_leaves(pa), param_leaves(pb), strict=True):
+            diff = (a.detach() - b.detach()).abs()
+            err = max(err, float(diff.max()))
+            held &= bool((diff <= 1e-7 + 1e-6 * b.detach().abs()).all())
+        if not held:
+            raise AssertionError(f"train: restart != uninterrupted, max abs "
+                                 f"err {err}")
+        del pa, pb, state, params0
+        shutil.rmtree(tmp / "direct")
+        free_device(device)
+
+        argv = ["--arch", TRAIN["arch"], "--device", str(device),
+                "--seed", str(SEED), "--steps", str(c["launcher_steps"]),
+                "--batch", str(c["batch"]), "--seq", str(c["seq"]),
+                "--ckpt-dir", str(tmp / "launcher"), "--ckpt-every",
+                str(c["ckpt_every"]), "--fail-at", str(c["fail_at"]),
+                "--log-every", "100", "--remat"]
+        t = time.perf_counter()
+        run = launcher.run(launcher.parse_args(argv), cfg=cfg)
+        launcher_s = time.perf_counter() - t
+        kept = Checkpointer(tmp / "launcher").list_steps()
+        steps_run = len(run["losses"])
+        if (run["steps"] != c["launcher_steps"] or run["restores"] != 1
+                or kept[-1] != c["launcher_steps"]
+                or not all(math.isfinite(x) for x in run["losses"])):
+            raise AssertionError(f"train: the launcher did not restore and "
+                                 f"finish: {run}, checkpoints {kept}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(layers=cfg.num_layers, batch=c["batch"], seq=c["seq"],
+                params=n_params, steps=c["steps"],
+                restart_max_abs_err=err, held=held,
+                save_s=save_s, restore_s=restore_s, gb_written=written,
+                launcher=dict(steps=run["steps"], steps_run=steps_run,
+                              restores=run["restores"], checkpoints=kept,
+                              seconds=launcher_s,
+                              final_loss=run["final_loss"]))
+
+
+def train_family_step(device, arch: str, scale: float = 1.0):
+    """Phase train (c): one step of ``arch`` cut to one group (the
+    configs' fp32 params, bf16 compute), B 2 x S 512: forward, backward
+    and AdamW each timed; a finite loss and a finite gradient on every
+    leaf are hard checks.  For the ssm family, the sLSTM block's forward and
+    backward alone on the same shapes (its Python time loop)."""
+    import torch
+
+    from repro_torch.models import blocks as B
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+
+    probe = train_config(arch, scale)
+    group = (probe.slstm_every or probe.shared_attn_every
+             or probe.cross_attn_every or 4)
+    cfg = train_config(arch, scale, group)
+    f = dict(TRAIN_FAMILIES)
+    if scale < 1:
+        f.update(seq=32)
+    model = LM(cfg, device=device)
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = init_params(model, device)
+    with torch.no_grad():
+        open_cross_gates(params)
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    batch = family_batch(cfg, f["batch"], f["seq"], device, generate=False)
+    batch["labels"] = batch["tokens"]
+    sync(device)
+    t = time.perf_counter()
+    loss, _ = model.loss(params, batch)
+    sync(device)
+    fwd_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loss.backward()
+    sync(device)
+    bwd_s = time.perf_counter() - t
+    loss = float(loss.detach())
+    if not math.isfinite(loss):
+        raise AssertionError(f"train {arch}: loss {loss}")
+    check_grads(params, f"train {arch}")
+    opt = adamw.init(params)
+    grads = adamw.tree_map(lambda p: p.grad, params)
+    sync(device)
+    t = time.perf_counter()
+    adamw.update(AdamWConfig(), grads, opt, params)
+    sync(device)
+    adamw_s = time.perf_counter() - t
+    out = dict(arch=arch, family=cfg.family, layers=cfg.num_layers,
+               params=sum(p.numel() for p in param_leaves(params)),
+               batch=f["batch"], seq=f["seq"], loss=loss,
+               forward_s=fwd_s, backward_s=bwd_s, adamw_s=adamw_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9
+               if device.type == "cuda" else None)
+    if cfg.family == "ssm":
+        cd = getattr(torch, cfg.compute_dtype)
+        sp = adamw.tree_map(lambda p: p.detach().to(cd).requires_grad_(),
+                            params["slstm"][0])
+        x = torch.randn((f["batch"], f["seq"], cfg.d_model), device=device,
+                        generator=torch.Generator(device=device).manual_seed(
+                            SEED)).to(cd).requires_grad_()
+        sync(device)
+        t = time.perf_counter()
+        y = B.slstm_block_train(sp, cfg, x)
+        sync(device)
+        s_fwd = time.perf_counter() - t
+        t = time.perf_counter()
+        y.float().square().mean().backward()
+        sync(device)
+        out["slstm_block"] = dict(forward_s=s_fwd,
+                                  backward_s=time.perf_counter() - t,
+                                  steps=f["seq"])
+    return out
+
+
+def train_moe_refuses(device, scale: float = 1.0):
+    """Phase train (c): moonshot cut to 2 layers under autograd raises the
+    experts' NotImplementedError on the card (no backward kernel); on the
+    CPU (rehearsals) the plain products run and the loss has a
+    gradient."""
+    import torch
+
+    from repro_torch.models.model import LM
+
+    cfg = train_config("moonshot-v1-16b-a3b", scale, TRAIN_MOE_LAYERS)
+    model = LM(cfg, device=device)
+    params = init_params(model, device)
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    batch = family_batch(cfg, 2, 64, device, generate=False)
+    batch["labels"] = batch["tokens"]
+    try:
+        model.loss(params, batch)[0].backward()
+    except NotImplementedError as e:
+        if device.type != "cuda" or "A11.1" not in str(e):
+            raise
+        return dict(arch=cfg.arch_id, layers=cfg.num_layers, raised=str(e))
+    if device.type == "cuda":
+        raise AssertionError("moonshot trained on the card: moe_experts did "
+                             "not refuse autograd")
+    return dict(arch=cfg.arch_id, layers=cfg.num_layers, raised=None)
+
+
+def phase_train(device, scale: float = 1.0):
+    """Phase train: (a) gemma-2b at full width through the train launcher,
+    (b) checkpoint and restart, (c) every other family's step and the MoE
+    refusal; each model freed before the next."""
+    out = {}
+    t = time.perf_counter()
+    out["full"] = train_full(device, scale)
+    free_device(device)
+    out["full"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["restart"] = train_restart(device, scale)
+    free_device(device)
+    out["restart"]["seconds"] = time.perf_counter() - t
+    out["families"] = {}
+    for arch in FAMILY_ARCHS:
+        t = time.perf_counter()
+        out["families"][arch] = dict(train_family_step(device, arch, scale),
+                                     seconds=time.perf_counter() - t)
+        free_device(device)
+    out["moe"] = train_moe_refuses(device, scale)
+    free_device(device)
+    return out
+
+
 def phase_parity(device, scale: float = 1.0):
     """Phase 4: CUDA engine vs the scalar oracle at the §7 rack width."""
     import numpy as np
@@ -2573,6 +2986,10 @@ def main() -> int:
     families = phase_families(device)
     emit({"phase": "families", "seconds": time.perf_counter() - t,
           "nvidia_smi": smi, **families})
+    t = time.perf_counter()
+    train = phase_train(device)
+    emit({"phase": "train", "seconds": time.perf_counter() - t,
+          "nvidia_smi": smi, **train})
     emit({"phase": "parity", "cells": phase_parity(device)})
     main_run = phase_main(device)
     emit({"phase": "main", **main_run})

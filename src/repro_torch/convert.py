@@ -1,8 +1,8 @@
-"""State carried into the port: plain functions over NumPy arrays.
+"""State carried into the port and back: plain functions over NumPy arrays.
 
-They take NumPy arrays (never objects of another package), so whatever
-built the arrays — this package's own host layer, or the JAX package it is
-held against — can hand them to the port's kernels unchanged.
+They take and give NumPy arrays (never objects of another package), so
+whatever built the arrays — this package's own host layer, or the JAX
+package it is held against — can hand them to the port unchanged.
 """
 
 from __future__ import annotations
@@ -93,3 +93,43 @@ def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
 
     stacks = LAYER_STACKS[cfg.family]
     return {k: unstack(v, stacks.get(k, 0)) for k, v in tree.items()}
+
+
+def lm_params_to_numpy(tree: dict, cfg: ModelConfig) -> dict:
+    """The opposite of :func:`lm_params_from_numpy`: the port's ``LM`` tree
+    (params, their gradients or AdamW moments) as the JAX package lays it
+    out, nested dicts of NumPy arrays with the layer lists stacked again
+    (``LAYER_STACKS``).  NumPy has no bfloat16: bf16 leaves come back as
+    float32, which holds them exactly; the other dtypes are kept."""
+
+    def conv(node):
+        t = node.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    def stack(node, depth):
+        if depth == 0:
+            if isinstance(node, dict):
+                return {k: stack(v, 0) for k, v in node.items()}
+            return conv(node)
+        items = [stack(v, depth - 1) for v in node]
+
+        def join(*xs):
+            if isinstance(xs[0], dict):
+                return {k: join(*(x[k] for x in xs)) for k in xs[0]}
+            return np.stack(xs)
+
+        return join(*items)
+
+    stacks = LAYER_STACKS[cfg.family]
+    return {k: stack(v, stacks.get(k, 0)) for k, v in tree.items()}
+
+
+def adamw_state_from_numpy(state: dict, cfg: ModelConfig, device) -> dict:
+    """The JAX package's AdamW state (``step``, fp32 ``mu`` and ``nu`` laid
+    out as the params) as ``repro_torch.optim.adamw``'s, on ``device``."""
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device),
+            "mu": lm_params_from_numpy(state["mu"], cfg, device),
+            "nu": lm_params_from_numpy(state["nu"], cfg, device)}

@@ -773,7 +773,9 @@ def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
     ``xs`` ``[M, d]`` and the weights (``[E, d, ff]``, ``[E, ff, d]``) in
     one float type, ``offs`` int32 ``[E]``; ``act`` ``"silu"`` or
     ``"gelu"``.  Returns ``[M, d]`` in xs's dtype, rows past ``offs[E-1]``
-    zero.  On the card the group sizes are never read on the host.
+    zero.  On the card the group sizes are never read on the host, and a
+    call that autograd would record (grad mode on, an input requiring grad)
+    raises ``NotImplementedError``: the kernels have no backward.
     ``_route`` forces a route (tests and ``chip_smoke.py``; a forced
     ``"wmma"`` the shapes do not allow raises)."""
     dev = xs.device
@@ -803,6 +805,13 @@ def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
     if dev.type != "cuda":
         return moe_experts_plain(xs, offs, w_gate, w_up, w_down, act)
     tensors = (xs, w_up, w_down) + (() if w_gate is None else (w_gate,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        # The launches below write a tensor autograd cannot see through:
+        # the experts and their inputs would silently get no gradient.
+        raise NotImplementedError(
+            "moe_experts has no backward kernel: the experts' grouped "
+            "products cannot train on a CUDA device yet (ROADMAP.md Queue A "
+            "item A11.1); run under torch.no_grad() or on the CPU")
     best = _moe_route(xs.dtype, d, ff,
                       all(t.data_ptr() % 16 == 0 for t in tensors))
     route = _route or best

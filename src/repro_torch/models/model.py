@@ -30,8 +30,10 @@ reference's stacked layout (``[G, P, B, ...]``, ``[G, B, ...]``, ``[L, B,
 ...]``); ``decode_step`` updates the cache it is given in place (the JAX
 version returned an updated copy).
 
-``backbone`` and ``loss`` run under autograd; ``prefill`` and
-``decode_step`` under ``no_grad``.  Mixed precision as in the reference:
+``backbone`` and ``loss`` run under autograd (with ``remat``, each layer
+or group is recomputed in the backward, at the reference's
+``jax.checkpoint`` sites); ``prefill`` and ``decode_step`` under
+``no_grad``.  Mixed precision as in the reference:
 ``_cast`` casts every fp32 leaf to the compute dtype, the fp32-drawn gate
 biases, ``a_log``, ``d_skip``, ``dt_bias`` and the MoE router included.
 ``attn_3d_kernels`` (the ``[d, H, hd]`` projections) raises: ROADMAP.md
@@ -43,6 +45,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -85,7 +88,7 @@ def _put(node, idx, state):
 class LM:
     """A decoder of any family on ``device`` (CUDA unless told otherwise)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, remat: bool = False):
         f = cfg.family
         if f not in FAMILIES:
             raise ValueError(f"unknown family {f!r}")
@@ -95,6 +98,7 @@ class LM:
                 "ROADMAP.md Queue A item A8.3")
         self.cfg = cfg
         self.device = resolve_device(device, "LM")
+        self.remat = remat  # recompute each layer (group) in the backward
         # The grouped layouts of the interleaved families.
         if f == "ssm":
             if not cfg.slstm_every or cfg.num_layers % cfg.slstm_every:
@@ -238,34 +242,53 @@ class LM:
     def backbone(self, p, x, batch):
         """Every block over the whole sequence ``x [B, S, d]`` (params
         already cast): ``(final-normed x, aux)``, aux the summed MoE
-        load-balance losses (0 without MoE)."""
+        load-balance losses (0 without MoE).  With ``remat``, each layer
+        (dense, moe, audio) or group (vlm, ssm, hybrid; not the hybrid's
+        tail) is recomputed in the backward, at the reference's
+        ``jax.checkpoint`` sites."""
         cfg = self.cfg
         f = cfg.family
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), device=x.device)
+
+        def ckpt(fn, *args):
+            if self.remat and torch.is_grad_enabled():
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
         if f in ("dense", "moe", "audio"):
             for lp in p["layers"]:
-                x, ax = B.dense_block_train(lp, cfg, x, positions)
+                x, ax = ckpt(B.dense_block_train, lp, cfg, x, positions)
                 aux = aux + ax
         elif f == "vlm":
             img = self._image(batch, x.dtype)
-            for selfs, crossp in zip(p["self_layers"], p["cross_layers"]):
+
+            def group(selfs, crossp, h, a):
                 for lp in selfs:
-                    x, ax = B.dense_block_train(lp, cfg, x, positions)
-                    aux = aux + ax
-                x = B.cross_block_apply(crossp, cfg, x, img)
+                    h, ax = B.dense_block_train(lp, cfg, h, positions)
+                    a = a + ax
+                return B.cross_block_apply(crossp, cfg, h, img), a
+
+            for selfs, crossp in zip(p["self_layers"], p["cross_layers"]):
+                x, aux = ckpt(group, selfs, crossp, x, aux)
         elif f == "ssm":
-            for mls, sls in zip(p["mlstm"], p["slstm"]):
+            def group(mls, sls, h):
                 for lp in mls:
-                    x = B.mlstm_block_train(lp, cfg, x)
-                x = B.slstm_block_train(sls, cfg, x)
+                    h = B.mlstm_block_train(lp, cfg, h)
+                return B.slstm_block_train(sls, cfg, h)
+
+            for mls, sls in zip(p["mlstm"], p["slstm"]):
+                x = ckpt(group, mls, sls, x)
         elif f == "hybrid":
-            for group in p["mamba"]:
-                for lp in group:
-                    x = B.mamba2_block_train(lp, cfg, x)
-                x, ax = B.dense_block_train(p["shared_attn"], cfg, x,
+            def group(mambas, h, a):
+                for lp in mambas:
+                    h = B.mamba2_block_train(lp, cfg, h)
+                h, ax = B.dense_block_train(p["shared_attn"], cfg, h,
                                             positions)
-                aux = aux + ax
+                return h, a + ax
+
+            for mambas in p["mamba"]:
+                x, aux = ckpt(group, mambas, x, aux)
             for lp in p.get("mamba_tail", ()):
                 x = B.mamba2_block_train(lp, cfg, x)
         return L.rmsnorm(x, p["final_norm"], cfg.norm_eps), aux

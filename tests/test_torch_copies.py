@@ -39,6 +39,11 @@ COPIES = [
     "configs/grok_1_314b.py", "configs/llama_3_2_vision_11b.py",
     "configs/moonshot_v1_16b_a3b.py", "configs/musicgen_large.py",
     "configs/qwen3_4b.py", "configs/xlstm_1_3b.py", "configs/zamba2_1_2b.py",
+    # The training substrate: the NumPy data pipeline, the launcher's
+    # runtime policies, and three package files that only re-export the
+    # port's own modules.
+    "data/__init__.py", "data/pipeline.py", "distributed/elastic.py",
+    "optim/__init__.py", "training/__init__.py", "checkpoint/__init__.py",
 ]
 
 # The reference's change-log tags, which the copies leave out.
@@ -79,6 +84,9 @@ TRIMMED = {
                          '"ssm"', '"hybrid"', '"audio"', '"vlm"',
                          "n_groups", "per_group", "n_tail"),
                         ("jax", "jnp")),
+    # elastic alone: sharding and hlo_analysis are ROADMAP.md A12.
+    "distributed/__init__.py": (("elastic",),
+                                ("jax", "sharding", "hlo_analysis")),
 }
 
 
@@ -116,7 +124,9 @@ def test_every_port_module_is_copied_trimmed_or_ported():
               "models/linear_recurrence.py",
               "memory/__init__.py", "memory/paged_pool.py",
               "serving/__init__.py", "serving/engine.py",
-              "launch/__init__.py", "launch/serve.py"}
+              "launch/__init__.py", "launch/serve.py", "launch/train.py",
+              "optim/adamw.py", "optim/compression.py",
+              "training/train_loop.py", "checkpoint/checkpointer.py"}
     have = {str(p.relative_to(ROOT / "repro_torch"))
             for p in (ROOT / "repro_torch").rglob("*.py")}
     assert have == set(COPIES) | set(TRIMMED) | ported

@@ -30,7 +30,10 @@ from repro_torch.kernels.range_match import (
 )
 from repro_torch.models import moe as M
 from repro_torch.models.model import LM
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.serving.engine import PagedServer
+from repro_torch.training.train_loop import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -950,3 +953,85 @@ def test_family_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers):
     for c, g in zip(out["cpu"], out[str(cuda)]):
         assert g.device.type == "cuda" and g.dtype == c.dtype
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------- #
+# Training: the train step on the card equals the CPU's; the MoE experts
+# refuse autograd on the card (no backward kernel).
+# --------------------------------------------------------------------- #
+def _warm_opt(params, seed):
+    """AdamW state at step 5 with seeded moments, so one update is smooth
+    in the gradient (at step 1 a near-zero gradient's sign moves its leaf
+    by ±lr)."""
+    opt = adamw.init(params)
+    gen = torch.Generator().manual_seed(seed)
+    for (m, _), (v, _) in zip(adamw.leaves(opt["mu"]),
+                              adamw.leaves(opt["nu"])):
+        m.copy_(torch.randn(m.shape, generator=gen) * 1e-3)
+        v.copy_(torch.randn(v.shape, generator=gen).abs() * 1e-6)
+    opt["step"].fill_(5)
+    return opt
+
+
+@pytest.mark.parametrize("arch,layers", [("gemma-2b", None),
+                                         ("xlstm-1.3b", None),
+                                         ("zamba2-1.2b", 5),
+                                         ("musicgen-large", None),
+                                         ("llama-3.2-vision-11b", None)])
+def test_train_step_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers):
+    """Reduced, fp32 (TF32 off), remat, 2 microbatches of B 2 x S 20 (the
+    recurrences' chunk padded): the loss, grad norm, lr and every updated
+    param and moment at 1e-4."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              compute_dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    opt = _warm_opt(params, 1)
+    batch = _family_batch(cfg, np.random.default_rng(4), 4, 20)
+    opt_cfg = AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    out = {}
+    for dev in ("cpu", cuda):
+        m = LM(cfg, device=dev, remat=True)
+        # Copies: the step updates its params and state in place.
+        p, o, met = make_train_step(m, opt_cfg, microbatches=2)(
+            *adamw.tree_map(lambda t: t.to(dev, copy=True), [params, opt]),
+            batch)
+        out[str(dev)] = ([met["loss"], met["grad_norm"], met["lr"]]
+                         + [t for t, _ in adamw.leaves({"p": p, "o": o})])
+    for c, g in zip(out["cpu"], out[str(cuda)], strict=True):
+        assert g.device.type == "cuda" and g.dtype == c.dtype
+        torch.testing.assert_close(g.detach().cpu(), c.detach(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_moe_experts_refuse_autograd_on_cuda(cuda):
+    """Under autograd the card's grouped products raise (their output has
+    no grad_fn: the experts would silently get no gradient); under
+    no_grad, as serving runs, they launch as before; the CPU's plain
+    products stay differentiable."""
+    xs, offs, wg, wu, wd = _moe_case("empty-groups", torch.bfloat16, cuda,
+                                     True)
+    for needs in ([xs], [wg], [wu], [wd]):
+        args = [a.clone().requires_grad_(any(a is n for n in needs))
+                if a.is_floating_point() else a
+                for a in (xs, offs, wg, wu, wd)]
+        with pytest.raises(NotImplementedError, match="A11.1"):
+            ops.moe_experts(*args, "silu")
+        with torch.no_grad():
+            before = ops.LAUNCHES["moe_experts"]
+            ops.moe_experts(*args, "silu")
+            assert ops.LAUNCHES["moe_experts"] == before + 1
+    cpu = [a.cpu().float().requires_grad_(a.is_floating_point())
+           for a in (xs, wg, wu, wd)]
+    ops.moe_experts(cpu[0], offs.cpu(), *cpu[1:], "silu").sum().backward()
+    assert all(a.grad is not None for a in cpu)
+
+    cfg = dataclasses.replace(reduced_config(get_config(
+        "moonshot-v1-16b-a3b")), compute_dtype="bfloat16")
+    m = LM(cfg, device=cuda)
+    params = m.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = _to(_family_batch(cfg, np.random.default_rng(5), 2, 8), cuda)
+    with pytest.raises(NotImplementedError, match="A11.1"):
+        make_train_step(m, AdamWConfig())(params, adamw.init(params), batch)
