@@ -139,7 +139,26 @@ exits nonzero):
               (hard checks); the sLSTM block's forward and backward alone;
               moonshot cut to 2 layers must raise moe_experts'
               NotImplementedError under autograd.
-6. parity   — the CUDA engine against the port's scalar oracle on the
+   mesh     — the distributed layer (repro_torch.launch.mesh,
+              distributed.sharding, optim.compression,
+              distributed.cost_analysis, launch.dryrun), gemma-2b at full
+              width cut to 2 layers with train's batch, sequence and
+              microbatches: (a) an NCCL group of one rank (file://
+              rendezvous) and make_smoke_mesh(); (b) params and AdamW
+              state placed by the sharding rules, saved, restored with
+              shardings= (every local shard bit for bit), two train steps
+              on the shards' local tensors bit-equal to two from the plain
+              restore; (c) compress_tree_psum of one microbatch's
+              gradients equal to its NumPy model, its ms and bytes (world
+              size 1 saves no traffic); (d) cost_analysis's FLOPs and
+              unfused bytes of one step and the roofline terms (H100
+              datasheet peaks) beside the median measured step, the
+              useful-FLOPs ratio, the argument bytes beside
+              memory_allocated's growth; (e) the dry run's gemma-2b x
+              train_4k (single-pod) and moonshot-v1-16b-a3b x decode_32k
+              (multi-pod) cells at full width, each in its own process,
+              status ok.  No CPU path.
+6. parity  — the CUDA engine against the port's scalar oracle on the
               MIND §7 rack (8 compute blades x 10 threads, rack defaults):
               M_A and GC at 2,000 and TF at 1,000 accesses per thread.
 7. main     — M_A at the trace's default 20,000 accesses per thread
@@ -312,6 +331,15 @@ TRAIN_MOE_LAYERS = 2
 # The model FLOPs of a step with remat: 6 per parameter and token, 2 more
 # for the recomputed forward.
 TRAIN_FLOPS_PER_PARAM_TOKEN = 6 + 2
+# Phase mesh: gemma-2b at full width cut to MESH_LAYERS (phase train (b)'s
+# depth, a cut forced by the phase's time: a checkpoint of the full depth
+# is 24.6 GB to write and read twice), TRAIN's batch, sequence and
+# microbatches; MESH_TIMED steps timed for (d); the dry-run cells of (e),
+# (arch, shape, multi-pod), each in its own process.
+MESH_LAYERS = 2
+MESH_TIMED = 5
+MESH_DRYRUN = (("gemma-2b", "train_4k", False),
+               ("moonshot-v1-16b-a3b", "decode_32k", True))
 # Phase moe: moe_ffn against its plain version, per compute dtype (outputs
 # of order 1, compared in fp32).
 MOE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -2396,6 +2424,276 @@ def phase_train(device, scale: float = 1.0):
     return out
 
 
+def np_compressed_psum(xs):
+    """The reference's compressed all-reduce (``repro/optim/compression.py``)
+    in NumPy over the ranks' arrays ``xs``: the int8 payloads summed as
+    int32, the fp32 scales summed, the sum rescaled by the mean scale.
+    Returns (int32 sums, scale sums, result)."""
+    import numpy as np
+
+    qs, ss = [], []
+    for x in xs:
+        flat = x.astype(np.float32).reshape(-1)
+        flat = np.concatenate([flat, np.zeros((-flat.size) % 256,
+                                              np.float32)])
+        blocks = flat.reshape(-1, 256)
+        scale = np.maximum(np.abs(blocks).max(axis=1, keepdims=True)
+                           / np.float32(127.0), np.float32(1e-12))
+        qs.append(np.clip(np.round(blocks / scale), -127, 127)
+                  .astype(np.int8).astype(np.int32))
+        ss.append(scale.astype(np.float32))
+    qsum, ssum = sum(qs), sum(ss)
+    y = qsum.astype(np.float32) * (ssum / np.float32(len(xs)))
+    return qsum, ssum, y.reshape(-1)[:xs[0].size].reshape(xs[0].shape)
+
+
+def phase_mesh(device):
+    """Phase mesh: the distributed layer on the card, gemma-2b at full
+    width cut to MESH_LAYERS.  (a) an NCCL group of one rank (a file://
+    rendezvous in a temp dir) and ``make_smoke_mesh()``; (b) the params,
+    drawn on the card, and their AdamW state placed by ``param_shardings``
+    / ``opt_state_shardings``, saved, restored with ``shardings=`` (every
+    local shard bit-equal to its leaf), then two train steps on the
+    restored shards' local tensors bit-equal (losses and params) to two
+    from the plain restore; (c) ``compress_tree_psum`` of one microbatch's
+    gradients over the group, equal to its NumPy model, timed, with the
+    bytes it reduced; (d) ``cost_analysis`` of one train step beside the
+    median of MESH_TIMED measured steps, and the argument bytes beside
+    ``memory_allocated``'s growth for params and AdamW state; (e) the
+    MESH_DRYRUN cells of ``repro_torch.launch.dryrun`` in processes of
+    their own (a fake group of 512 ranks cannot share a process with the
+    NCCL group), each ``ok``."""
+    import shutil
+    import tempfile
+
+    if device.type != "cuda":
+        raise ValueError(f"phase mesh runs on a CUDA device, not {device}")
+    cfg = train_config(TRAIN["arch"], 1.0, MESH_LAYERS)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_", dir=out_dir))
+    try:
+        return _mesh_run(device, cfg, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mesh_run(device, cfg, tmp):
+    """Phase mesh's work, its files in ``tmp``."""
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed import cost_analysis as ca
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import describe, make_smoke_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import compress_tree_psum
+    from repro_torch.training.train_loop import make_train_step
+
+    tr = TRAIN
+    out: dict = {}
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'rdzv'}",
+                            rank=0, world_size=1, device_id=device)
+    try:
+        # (a) the mesh.
+        mesh = make_smoke_mesh()
+        out["mesh"] = describe(mesh)
+        print(f"mesh: {out['mesh']}", flush=True)
+
+        # (b) placement, save, restore.
+        model = LM(cfg, device=device, remat=True)
+        sync(device)
+        m0 = torch.cuda.memory_allocated(device)
+        params = init_params(model, device)
+        opt = adamw.init(params)
+        sync(device)
+        grown = torch.cuda.memory_allocated(device) - m0
+        state = {"params": params, "opt": opt}
+        p_shard = shd.param_shardings(params, mesh)
+        shardings = {"params": p_shard,
+                     "opt": shd.opt_state_shardings(opt, p_shard, mesh)}
+        ck = Checkpointer(tmp / "ck")
+        t = time.perf_counter()
+        ck.save(0, shd.device_put(state, shardings))
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored, _, _, _ = ck.restore(state, shardings=shardings)
+        sync(device)
+        restore_s = time.perf_counter() - t
+        n_leaves = 0
+        for a, (b, _) in zip(param_leaves(restored), adamw.leaves(state),
+                             strict=True):
+            loc = a.to_local() if isinstance(a, DTensor) else None
+            if (loc is None or loc.dtype != b.dtype or loc.shape != b.shape
+                    or not torch.equal(loc, b)):
+                raise AssertionError(f"mesh: restored leaf {n_leaves} is not "
+                                     f"its saved leaf bit for bit")
+            n_leaves += 1
+        plain, _, _, _ = ck.restore(state)
+        n_params = sum(p.numel() for p in param_leaves(params))
+        del state, params, opt
+        local = adamw.tree_map(lambda t: t.to_local().detach(), restored)
+        del restored
+        free_device(device)
+        loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=tr["seq"],
+                                          global_batch=tr["batch"],
+                                          seed=SEED), cfg)
+        step_fn = make_train_step(model, AdamWConfig(),
+                                  microbatches=tr["microbatches"])
+
+        def steps(st, lo, hi):
+            p, o, losses = st["params"], st["opt"], []
+            for s in range(lo, hi):
+                p, o, m = step_fn(p, o, loader.batch(s))
+                losses.append(float(m["loss"]))
+            return {"params": p, "opt": o}, losses
+
+        sharded_run, la = steps(local, 0, 2)
+        plain_run, lb = steps(plain, 0, 2)
+        same = la == lb and all(
+            torch.equal(x, y) for x, y in zip(
+                param_leaves(sharded_run["params"]),
+                param_leaves(plain_run["params"]), strict=True))
+        if not same:
+            raise AssertionError(f"mesh: two steps from the sharded restore "
+                                 f"{la} != from the plain restore {lb}")
+        out["restore"] = dict(
+            layers=cfg.num_layers, params=n_params, leaves=n_leaves,
+            bit_equal=True, save_s=save_s, restore_s=restore_s,
+            gb=sum(f.stat().st_size for f in (tmp / "ck").rglob("*")
+                   if f.is_file()) / 1e9,
+            losses=la, steps_bit_equal=same)
+        del plain_run
+        free_device(device)
+
+        # (c) the compressed all-reduce of one microbatch's gradients.
+        run = sharded_run
+        ps = param_leaves(run["params"])
+        for p in ps:
+            p.requires_grad_(True)
+        half = {k: torch.as_tensor(v[:tr["batch"] // tr["microbatches"]]).to(
+            device) for k, v in loader.batch(2).items()}
+        model.loss(run["params"], half)[0].backward()
+        grads = adamw.tree_map(lambda p: p.grad.detach(), run["params"])
+        for p in ps:
+            p.grad = None
+            p.requires_grad_(False)
+        reduced = compress_tree_psum(grads)  # warm: NCCL's first call
+        sync(device)
+        t = time.perf_counter()
+        reduced = compress_tree_psum(grads)
+        sync(device)
+        psum_ms = (time.perf_counter() - t) * 1e3
+        err, rel, exact = 0.0, 0.0, True
+        payload = 0
+        for g, r in zip(param_leaves(grads), param_leaves(reduced),
+                        strict=True):
+            qsum, _, want = np_compressed_psum([g.float().cpu().numpy()])
+            got = r.cpu().numpy()
+            payload += qsum.size * 4 + qsum.shape[0] * 4
+            exact &= bool(np.array_equal(got, want))
+            err = max(err, float(np.abs(got - want).max()))
+            rel = max(rel, float((np.abs(got - want)
+                                  / np.maximum(np.abs(want), 1e-30)).max()))
+        if rel > 1e-6:
+            raise AssertionError(f"mesh: compress_tree_psum != its NumPy model "
+                                 f"(max abs err {err}, rel {rel})")
+        fp32_bytes = sum(g.numel() * 4 for g in param_leaves(grads))
+        out["compressed_psum"] = dict(
+            world=dist.get_world_size(), leaves=len(param_leaves(grads)),
+            ms=psum_ms, bytes_reduced=payload, fp32_gradient_bytes=fp32_bytes,
+            bit_equal=exact, max_abs_err=err, max_rel_err=rel,
+            note="world size 1: the int32 payload and the fp32 scales are "
+                 "as many bytes as the fp32 gradients; no traffic is saved")
+        del grads, reduced
+        free_device(device)
+
+        # (d) the cost analysis of one train step beside measured steps.
+        batch = loader.batch(3)
+        args_mem = ca.memory_analysis_dict((run["params"], run["opt"]), ())
+        with ca.CostMode() as cm:
+            run["params"], run["opt"], m = step_fn(run["params"], run["opt"],
+                                                   batch)
+            float(m["loss"])
+        step_s = []
+        for s in range(4, 4 + MESH_TIMED):
+            sync(device)
+            t = time.perf_counter()
+            run["params"], run["opt"], m = step_fn(run["params"], run["opt"],
+                                                   loader.batch(s))
+            float(m["loss"])
+            step_s.append(time.perf_counter() - t)
+        step = statistics.median(step_s)
+        tokens = tr["batch"] * tr["seq"]
+        terms = ca.roofline(cm.costs, chips=1, model_flops=(
+            TRAIN_FLOPS_PER_PARAM_TOKEN * n_params * tokens))
+        r = terms.to_dict()
+        out["cost"] = dict(
+            roofline=r, collectives=cm.costs.to_dict(), step_s=step,
+            step_s_all=step_s, tokens=tokens,
+            compute_share=r["compute_s"] / step,
+            memory_share=r["memory_s"] / step,
+            useful_flops_ratio=r["useful_flops_ratio"],
+            flops_per_param_token=TRAIN_FLOPS_PER_PARAM_TOKEN,
+            argument_bytes=args_mem["argument_size_in_bytes"],
+            memory_allocated_growth=grown)
+        print(f"mesh cost: counted {r['flops']:.4e} FLOPs, "
+              f"{r['hbm_bytes']:.4e} B (unfused); compute {r['compute_s']:.4e}"
+              f" s, memory {r['memory_s']:.4e} s, collective "
+              f"{r['collective_s']:.4e} s; measured step {step:.4e} s "
+              f"(compute term {r['compute_s'] / step:.2%} of it); useful "
+              f"FLOPs ratio {r['useful_flops_ratio']:.4f}; arguments "
+              f"{args_mem['argument_size_in_bytes']} B, memory_allocated "
+              f"grew {grown} B", flush=True)
+        del run, local, plain
+        free_device(device)
+    finally:
+        dist.destroy_process_group()
+
+    # (e) two dry-run cells at full width, each in its own process.
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    try:
+        for arch, shape, multi in MESH_DRYRUN:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--out",
+                    str(tmp / "dryrun")] + (["--multi-pod"] if multi else [])
+            procs.append(subprocess.Popen(argv, env=env, cwd=ROOT,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        for (arch, shape, multi), proc in zip(MESH_DRYRUN, procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            rec_path = (tmp / "dryrun" / f"{arch}__{shape}__"
+                        f"{'multi' if multi else 'single'}.json")
+            rec = json.loads(rec_path.read_text()) if rec_path.exists() else {}
+            if proc.returncode or rec.get("status") != "ok":
+                raise AssertionError(
+                    f"mesh: dry run {arch} x {shape} exited "
+                    f"{proc.returncode}, status {rec.get('status')}: "
+                    f"{rec.get('traceback', '')[-3000:]}{stderr[-2000:]}")
+            out.setdefault("dryrun", {})[f"{arch} x {shape}"] = {
+                k: rec[k] for k in ("mesh_desc", "trace_s", "roofline",
+                                    "collectives", "memory", "status")}
+            print(f"dryrun {arch} x {shape}: {stdout.strip()}", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def phase_parity(device, scale: float = 1.0):
     """Phase 4: CUDA engine vs the scalar oracle at the §7 rack width."""
     import numpy as np
@@ -2990,6 +3288,11 @@ def main() -> int:
     train = phase_train(device)
     emit({"phase": "train", "seconds": time.perf_counter() - t,
           "nvidia_smi": smi, **train})
+    t = time.perf_counter()
+    mesh = phase_mesh(device)
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t,
+          "nvidia_smi": smi, **mesh})
+    free_device(device)
     emit({"phase": "parity", "cells": phase_parity(device)})
     main_run = phase_main(device)
     emit({"phase": "main", **main_run})

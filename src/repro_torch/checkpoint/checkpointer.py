@@ -61,7 +61,12 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A NumPy copy of ``t`` (bf16 as its uint16 bits)."""
+    """A NumPy copy of ``t`` (bf16 as its uint16 bits; a DTensor whole,
+    gathered from its shards)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -154,10 +159,16 @@ class Checkpointer:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, state_template, step: int | None = None):
+    def restore(self, state_template, step: int | None = None,
+                shardings=None):
         """Restore into the structure of ``state_template`` (a tree of
-        tensors), each leaf on its template's device in its dtype.  Returns
-        (state, step, extras, mind_snapshot)."""
+        tensors), each leaf on its template's device in its dtype.  With
+        ``shardings`` (a tree of
+        :class:`repro_torch.distributed.sharding.NamedSharding` laid out as
+        the template), each leaf is then placed as a DTensor on its mesh,
+        every rank keeping its own shard of what it read (the port's
+        ``device_put``; a restore onto a resized mesh is the elastic
+        re-mesh).  Returns (state, step, extras, mind_snapshot)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -172,8 +183,12 @@ class Checkpointer:
                                      f"{tuple(a.shape)}, the template "
                                      f"{tuple(t.shape)}")
                 values[key] = a.to(device=t.device, dtype=t.dtype)
+        state = _unflatten(state_template, values)
+        if shardings is not None:
+            from repro_torch.distributed.sharding import device_put
+
+            state = device_put(state, shardings, src_data_rank=None)
         mind = None
         if (d / "mind_state.json").exists():
             mind = (d / "mind_state.json").read_text()
-        return (_unflatten(state_template, values), step,
-                manifest["extras"], mind)
+        return state, step, manifest["extras"], mind

@@ -1,7 +1,9 @@
-"""The runtime policies of the train launcher (failure injection, straggler
-monitor, re-mesh planning), copied from the JAX package.  Sharding and the
-HLO analysis are not ported yet: ROADMAP.md Queue A item A12."""
+"""The distributed layer: the sharding rules (``sharding``, DTensor
+placements per parameter, optimizer, batch and cache leaf), the cost
+analysis of a traced step (``cost_analysis``) and the runtime policies of
+the train launcher (``elastic``: failure injection, straggler monitor,
+re-mesh planning, copied from the JAX package)."""
 
-from repro_torch.distributed import elastic
+from repro_torch.distributed import cost_analysis, elastic, sharding
 
-__all__ = ["elastic"]
+__all__ = ["cost_analysis", "elastic", "sharding"]

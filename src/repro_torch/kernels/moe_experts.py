@@ -30,8 +30,11 @@ elementwise ops does.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 ACTS = ("silu", "gelu")
 
@@ -61,3 +64,143 @@ def moe_experts_plain(xs: torch.Tensor, offs: torch.Tensor, w_gate,
             out[start:end] = h @ w_down[e]
         start = end
     return out
+
+
+# --------------------------------------------------------------------- #
+# The shape-only route: the dry run's meta tensors (and DTensors of them).
+# Three ops, each with a FLOP formula (``torch.utils.flop_counter``) and
+# DTensor placements: the forward, the backward's dX and one weight's dW.
+# --------------------------------------------------------------------- #
+def _shape_only(*args):
+    raise NotImplementedError("the moe_experts meta ops give shapes only: "
+                              "call them on meta tensors")
+
+
+def _op(name: str, schema: str):
+    op = torch.library.custom_op(f"repro_torch::{name}", _shape_only,
+                                 mutates_args=(), schema=schema)
+    return op, getattr(torch.ops.repro_torch, name)
+
+
+_fwd, _FWD = _op("moe_experts_meta", "(Tensor xs, Tensor offs, Tensor? "
+                 "w_gate, Tensor w_up, Tensor w_down) -> Tensor")
+_dx, _DX = _op("moe_experts_meta_dx", "(Tensor grad, Tensor xs, Tensor offs, "
+               "Tensor? w_gate, Tensor w_up, Tensor w_down) -> Tensor")
+_dw, _DW = _op("moe_experts_meta_dw", "(Tensor grad, Tensor xs, Tensor offs, "
+               "Tensor w, int ff_dim) -> Tensor")
+
+
+@_fwd.register_fake
+def _(xs, offs, w_gate, w_up, w_down):
+    return xs.new_empty((*xs.shape[:-1], w_down.shape[-1]))
+
+
+@_dx.register_fake
+def _(grad, xs, offs, w_gate, w_up, w_down):
+    return torch.empty_like(xs)
+
+
+@_dw.register_fake
+def _(grad, xs, offs, w, ff_dim):
+    return torch.empty_like(w)
+
+
+def _products(w_gate) -> int:
+    return 2 if w_gate is None else 3
+
+
+@register_flop_formula(_FWD)
+def _(xs_shape, offs_shape, w_gate_shape, w_up_shape, w_down_shape,
+      *args, **kwargs) -> int:
+    """2 M d ff for each product over the routed rows (two products,
+    three with a gate: the reference's ``ragged_dot`` calls)."""
+    rows = math.prod(xs_shape[:-1])
+    return 2 * rows * xs_shape[-1] * w_up_shape[-1] * _products(w_gate_shape)
+
+
+@register_flop_formula(_DX)
+def _(grad_shape, xs_shape, offs_shape, w_gate_shape, w_up_shape,
+      w_down_shape, *args, **kwargs) -> int:
+    rows = math.prod(xs_shape[:-1])
+    return 2 * rows * xs_shape[-1] * w_up_shape[-1] * _products(w_gate_shape)
+
+
+@register_flop_formula(_DW)
+def _(grad_shape, xs_shape, offs_shape, w_shape, ff_dim, *args,
+      **kwargs) -> int:
+    return 2 * math.prod(xs_shape[:-1]) * w_shape[1] * w_shape[2]
+
+
+def _setup(ctx, inputs, output):
+    xs, offs, w_gate, w_up, w_down = inputs
+    ctx.save_for_backward(xs, offs, w_gate, w_up, w_down)
+
+
+def _backward(ctx, grad):
+    xs, offs, w_gate, w_up, w_down = ctx.saved_tensors
+    dws = [None if w is None else _DW(grad, xs, offs, w, ff_dim)
+           for w, ff_dim in ((w_gate, 2), (w_up, 2), (w_down, 1))]
+    return (_DX(grad, xs, offs, w_gate, w_up, w_down), None, *dws)
+
+
+_fwd.register_autograd(_backward, setup_context=_setup)
+
+_SHARDING_REGISTERED = False
+
+
+def _register_meta_sharding() -> None:
+    """The ops' DTensor placements, per mesh dim: all replicated; the
+    experts' hidden dim ff sharded (``w_gate``/``w_up`` on dim 2,
+    ``w_down`` on dim 1), the products over it partial sums; and a
+    leading group dim of ``xs`` sharded, each group routed alone (the
+    capacity dispatch's data groups), the weight gradients partial sums.
+    The rows of one ragged group list are never split: its offsets are
+    global."""
+    global _SHARDING_REGISTERED
+    if _SHARDING_REGISTERED:
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    r, part = Replicate(), Partial()
+
+    def ws(w_gate, gate, up, down):
+        return [None if w_gate is None else gate, up, down]
+
+    @register_sharding(_FWD.default)
+    def _(xs, offs, w_gate, w_up, w_down):
+        rules = [([r], [r, r, *ws(w_gate, r, r, r)]),
+                 ([part], [r, r, *ws(w_gate, Shard(2), Shard(2), Shard(1))])]
+        if xs.ndim == 3:
+            rules.append(([Shard(0)], [Shard(0), r, *ws(w_gate, r, r, r)]))
+        return rules
+
+    @register_sharding(_DX.default)
+    def _(grad, xs, offs, w_gate, w_up, w_down):
+        rules = [([r], [r, r, r, *ws(w_gate, r, r, r)]),
+                 ([part], [r, r, r,
+                           *ws(w_gate, Shard(2), Shard(2), Shard(1))])]
+        if xs.ndim == 3:
+            rules.append(([Shard(0)],
+                          [Shard(0), Shard(0), r, *ws(w_gate, r, r, r)]))
+        return rules
+
+    @register_sharding(_DW.default)
+    def _(grad, xs, offs, w, ff_dim):
+        rules = [([r], [r, r, r, r, None]),
+                 ([Shard(ff_dim)], [r, r, r, Shard(ff_dim), None])]
+        if xs.ndim == 3:
+            rules.append(([part], [Shard(0), Shard(0), r, r, None]))
+        return rules
+
+    _SHARDING_REGISTERED = True
+
+
+def moe_experts_meta(xs, offs, w_gate, w_up, w_down) -> torch.Tensor:
+    """The grouped products' result ``[..., M, d]`` on meta tensors (plain
+    or DTensors), their work and their backward's registered as matmul
+    FLOPs, so the dry run's cost analysis counts the routed rows; nothing
+    reads the group sizes.  ``xs`` may carry a leading group dim (``[G, M,
+    d]``, the same ``offs`` in every group)."""
+    _register_meta_sharding()
+    return _FWD(xs, offs, w_gate, w_up, w_down)

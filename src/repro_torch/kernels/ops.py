@@ -47,7 +47,11 @@ from repro_torch.kernels.directory_msi import (
 )
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.lane_replay import lane_replay_plain
-from repro_torch.kernels.moe_experts import ACTS, moe_experts_plain
+from repro_torch.kernels.moe_experts import (
+    ACTS,
+    moe_experts_meta,
+    moe_experts_plain,
+)
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.range_match import (
     NO_MATCH,
@@ -777,13 +781,18 @@ def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
     call that autograd would record (grad mode on, an input requiring grad)
     raises ``NotImplementedError``: the kernels have no backward.
     ``_route`` forces a route (tests and ``chip_smoke.py``; a forced
-    ``"wmma"`` the shapes do not allow raises)."""
+    ``"wmma"`` the shapes do not allow raises).  On ``meta`` (the dry run)
+    it is :func:`~repro_torch.kernels.moe_experts.moe_experts_meta`: the
+    shape, ``xs`` ``[M, d]`` or ``[G, M, d]``, and the work of the rows."""
     dev = xs.device
     if not isinstance(xs, torch.Tensor) or xs.dtype not in _PA_DTYPES:
         raise TypeError(f"xs must be a float32/bfloat16/float16 tensor, "
                         f"got {getattr(xs, 'dtype', type(xs))}")
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if dev.type == "meta":
+        # The dry run: the result's shape, the routed rows' work counted.
+        return moe_experts_meta(xs, offs, w_gate, w_up, w_down)
     _expect(xs, "xs", xs.dtype, 2, dev)
     _expect(w_up, "w_up", xs.dtype, 3, dev)
     _expect(w_down, "w_down", xs.dtype, 3, dev)

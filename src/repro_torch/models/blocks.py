@@ -182,7 +182,8 @@ def _mlstm_qkv_gates(p, cfg: ModelConfig, x_in):
     xb, z = up.chunk(2, dim=-1)  # [B, T, inner] each
 
     def heads(w):
-        return (xb @ w).reshape(b, t, h, dh).transpose(1, 2)
+        return L._splittable(xb @ w, -1, h).reshape(b, t, h, dh).transpose(
+            1, 2)
 
     q = heads(p["wq"])
     k = heads(p["wk"]) / math.sqrt(dh)
@@ -207,8 +208,10 @@ def mlstm_block_prefill(p, cfg: ModelConfig, x):
     xn = L.rmsnorm(x, p["norm"], cfg.norm_eps)
     q, k, v, log_f, log_i, z = _mlstm_qkv_gates(p, cfg, xn)
     chunk = cfg.ssm.chunk_size if cfg.ssm else 64
-    y, s_fin, n_fin = chunked_linear_attention(
-        q, k, v, log_f, log_i, chunk_size=chunk, normalize=True)
+    y, s_fin, n_fin = _by_heads(
+        lambda *a: chunked_linear_attention(*a, chunk_size=chunk,
+                                            normalize=True),
+        q, k, v, log_f, log_i)
     y = y.transpose(1, 2).reshape(b, t, inner)
     return _mlstm_out(p, cfg, x, y, z), {"s": s_fin, "n": n_fin}
 
@@ -270,7 +273,8 @@ def _slstm_cell(p, cfg: ModelConfig, pre, h_prev, c_prev, n_prev, m_prev):
     d = cfg.d_model
     nh = cfg.num_heads
     dh = d // nh
-    rec = torch.einsum("bhd,hde->bhe", h_prev.reshape(b, nh, dh).float(),
+    hp = L._splittable(h_prev, -1, nh).reshape(b, nh, dh)
+    rec = torch.einsum("bhd,hde->bhe", hp.float(),
                        p["r"].float()).reshape(b, 4 * d)
     acts = pre.float() + rec + p["gate_bias"]
     i_, f_, z_, o_ = acts.chunk(4, dim=-1)
@@ -293,19 +297,64 @@ def _slstm_out(p, cfg: ModelConfig, x, hs):
     return x + L.mlp(p["ff"], cfg, hn)
 
 
-def slstm_block_prefill(p, cfg: ModelConfig, x):
-    """Full-sequence block (one cell step per position) and its final state
-    ``{"h", "c", "n", "m"}``."""
-    b, t, d = x.shape
-    xn = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-    pre = (xn @ p["w_in"]).float()  # [B, T, 4d]
-    h = c = n = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-    m = torch.full((b, d), -1e30, dtype=torch.float32, device=x.device)
+def _slstm_scan(cfg: ModelConfig, r, gate_bias, pre):
+    """The cell over every position of ``pre [B, T, 4d]`` (fp32) from the
+    zero state: ``(hs [B, T, d], h, c, n, m)``."""
+    b, t = pre.shape[:2]
+    d = cfg.d_model
+    p = {"r": r, "gate_bias": gate_bias}
+    h = c = n = torch.zeros((b, d), dtype=torch.float32, device=pre.device)
+    m = torch.full((b, d), -1e30, dtype=torch.float32, device=pre.device)
     hs = []
     for i in range(t):
         h, c, n, m = _slstm_cell(p, cfg, pre[:, i], h, c, n, m)
         hs.append(h)
-    out = _slstm_out(p, cfg, x, torch.stack(hs, dim=1))
+    return torch.stack(hs, dim=1), h, c, n, m
+
+
+def _by_rows(fn, *args):
+    """``fn(*args)``, the last arg ``[B, ...]`` and every output split by
+    batch rows; on DTensors shard by shard (``local_map``), each shard's
+    rows whole and the other args replicated, since the rows are
+    independent: the cell loop's thousands of small ops then run on plain
+    shards, not through DTensor's dispatch (minutes a cell)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = args[-1]
+    if not isinstance(rows, DTensor):
+        return fn(*args)
+    rp = [p if p == Shard(0) else Replicate() for p in rows.placements]
+    rep = [Replicate()] * len(rp)
+    return local_map(fn, out_placements=(rp,) * 5,
+                     in_placements=(*([rep] * (len(args) - 1)), rp),
+                     redistribute_inputs=True)(*args)
+
+
+def _by_heads(fn, q, k, v, log_a, log_b):
+    """``fn(q, k, v, log_a, log_b)`` over ``[B, H, ...]`` inputs, each
+    output ``[B, H, ...]`` too; on DTensors shard by shard, the batch and
+    head dims kept sharded where ``v``'s are and everything else
+    replicated: the chunk loop's small ops then run on plain shards."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(v, DTensor):
+        return fn(q, k, v, log_a, log_b)
+    pl = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in v.placements]
+    return local_map(fn, out_placements=(pl,) * 3, in_placements=(pl,) * 5,
+                     redistribute_inputs=True)(q, k, v, log_a, log_b)
+
+
+def slstm_block_prefill(p, cfg: ModelConfig, x):
+    """Full-sequence block (one cell step per position) and its final state
+    ``{"h", "c", "n", "m"}``."""
+    xn = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+    pre = (xn @ p["w_in"]).float()  # [B, T, 4d]
+    hs, h, c, n, m = _by_rows(lambda r, gb, pr: _slstm_scan(cfg, r, gb, pr),
+                              p["r"], p["gate_bias"], pre)
+    out = _slstm_out(p, cfg, x, hs)
     return out, {"h": h, "c": c, "n": n, "m": m}
 
 
@@ -417,12 +466,14 @@ def mamba2_block_prefill(p, cfg: ModelConfig, x):
     cmat = xbc[..., inner + dstate:]
     log_a, log_b = _mamba_gates(p, dt_pre)  # [B, T, H]
     # Per head: k = B (shared), v = x_head, q = C (shared).
-    v = xs.reshape(b, t, nheads, headdim).transpose(1, 2)
+    v = L._splittable(xs, -1, nheads).reshape(b, t, nheads,
+                                              headdim).transpose(1, 2)
     k = bmat[:, None].expand(b, nheads, t, dstate)
     q = cmat[:, None].expand(b, nheads, t, dstate)
-    y, s_fin, _ = chunked_linear_attention(
-        q, k, v, log_a.transpose(1, 2), log_b.transpose(1, 2),
-        chunk_size=cfg.ssm.chunk_size, normalize=False)
+    y, s_fin, _ = _by_heads(
+        lambda *a: chunked_linear_attention(*a, chunk_size=cfg.ssm.chunk_size,
+                                            normalize=False),
+        q, k, v, log_a.transpose(1, 2), log_b.transpose(1, 2))
     y = y + p["d_skip"][None, :, None, None] * v.float()
     y = y.transpose(1, 2).reshape(b, t, inner).to(x.dtype)
     y = L.rmsnorm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
@@ -446,7 +497,7 @@ def mamba2_block_decode(p, cfg: ModelConfig, x, cache):
     bmat = xbc[:, 0, inner:inner + dstate]
     cmat = xbc[:, 0, inner + dstate:]
     log_a, log_b = _mamba_gates(p, dt_pre[:, 0])  # [B, H]
-    v = xs.reshape(b, nheads, headdim)
+    v = L._splittable(xs, -1, nheads).reshape(b, nheads, headdim)
     k = bmat[:, None].expand(b, nheads, dstate)
     q = cmat[:, None].expand(b, nheads, dstate)
     y, s_new, _ = recurrent_step(q, k, v, log_a, log_b, cache["s"],

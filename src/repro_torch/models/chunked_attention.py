@@ -51,7 +51,7 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     vb = v.reshape(b, nk, bk, hkv, d).permute(0, 1, 3, 2, 4)
 
     dev = q.device
-    out = torch.empty((b, nq, hkv, g, bq, d), dtype=q.dtype, device=dev)
+    blocks = []  # a list, not slices of one buffer: q may be a DTensor
     for iq in range(nq):
         q32 = qb[:, iq].float() * scale  # [B, Hkv, G, bq, D]
         m = torch.full((b, hkv, g, bq, 1), NEG_INF, dtype=torch.float32,
@@ -73,7 +73,8 @@ def chunked_attention(q, k, v, *, causal: bool = True,
             acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", pexp,
                                              vb[:, ik].float())
             m = m_n
-        out[:, iq] = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+        blocks.append((acc / torch.clamp(l, min=1e-30)).to(q.dtype))
     # [B, NQ, Hkv, G, bq, D] -> [B, Sq, Hq, D]
-    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq_p, hq, d)
+    out = torch.stack(blocks, dim=1).permute(0, 1, 4, 2, 3, 5)
+    out = out.reshape(b, sq_p, hq, d)
     return out[:, :sq]

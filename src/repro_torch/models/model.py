@@ -36,8 +36,14 @@ or group is recomputed in the backward, at the reference's
 ``no_grad``.  Mixed precision as in the reference:
 ``_cast`` casts every fp32 leaf to the compute dtype, the fp32-drawn gate
 biases, ``a_log``, ``d_skip``, ``dt_bias`` and the MoE router included.
-``attn_3d_kernels`` (the ``[d, H, hd]`` projections) raises: ROADMAP.md
-A8.3.
+``attn_3d_kernels`` gives the ``[d, H, hd]`` projections (the 2-D init's
+numbers reshaped, as in the reference).
+
+``param_specs()`` and ``input_specs(shape)`` give the parameter and batch
+trees as meta tensors (the dry run's shape-only inputs); the dry run runs
+``loss``, ``prefill`` and ``decode_step`` on meta DTensors, so the code
+here writes into no buffer that is not a DTensor itself (``prefill``
+takes the cache to fill).
 """
 
 from __future__ import annotations
@@ -45,9 +51,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -62,11 +69,33 @@ def sinusoidal_positions(positions: torch.Tensor, d: int, dtype):
     dim = torch.arange(0, d, 2, dtype=torch.float32,
                        device=positions.device)[None, :]
     angle = pos / torch.pow(10000.0, dim / d)
-    out = torch.empty((pos.shape[0], d), dtype=torch.float32,
-                      device=positions.device)
-    out[:, 0::2] = torch.sin(angle)
-    out[:, 1::2] = torch.cos(angle)
-    return out.to(dtype)
+    # Interleaved by a stack (no writes into a buffer: the dry run's
+    # positions are DTensors).
+    out = torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1)
+    return out.reshape(pos.shape[0], d).to(dtype)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator that says it is on meta: ``init``'s draws then give meta
+    tensors, which meta kernels make without drawing (torch has no meta
+    generator of its own)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def _lookup(tokens, table):
+    """``table[tokens]`` (``F.embedding``).  A DTensor table is replicated
+    first (an all-gather; its gradient a reduce-scatter): DTensor's
+    vocabulary-sharded lookup leaves a masked partial sum that remat's
+    recomputation and the backward cannot always reduce."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    return F.embedding(tokens, table)
 
 
 def _stack(spec, *dims):
@@ -92,10 +121,6 @@ class LM:
         f = cfg.family
         if f not in FAMILIES:
             raise ValueError(f"unknown family {f!r}")
-        if cfg.attn_3d_kernels:
-            raise NotImplementedError(
-                "attn_3d_kernels ([d, H, hd] projections) is not ported: "
-                "ROADMAP.md Queue A item A8.3")
         self.cfg = cfg
         self.device = resolve_device(device, "LM")
         self.remat = remat  # recompute each layer (group) in the backward
@@ -128,12 +153,20 @@ class LM:
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {self.device}")
-        cfg, gen = self.cfg, generator
+        return self._init(generator)
+
+    def param_specs(self) -> dict:
+        """The tree ``init`` gives, as meta tensors of its shapes and
+        dtypes, drawing nothing.  Works at any width."""
+        return self._init(_MetaGenerator())
+
+    def _init(self, gen) -> dict:
+        cfg = self.cfg
         dt = L._dtype(cfg.param_dtype)
         f = cfg.family
         audio = f == "audio"
         p: dict = {"final_norm": torch.zeros((cfg.d_model,), dtype=dt,
-                                             device=self.device)}
+                                             device=gen.device)}
         if audio:
             p["embed"] = torch.stack([
                 L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
@@ -172,6 +205,29 @@ class LM:
             p["shared_attn"] = B.dense_block_params(gen, cfg)  # weight-tied
         return p
 
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """The batch of one assigned shape cell as meta tensors: tokens
+        (audio ``[B, S, K]``) and, for training, labels, int32; the vlm's
+        image embeddings in the compute dtype; decode's ``tokens [B]``
+        (audio ``[B, K]``) and ``lengths [B]``."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        k = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+        if shape.kind in ("train", "prefill"):
+            out = {"tokens": meta(b, s, *k)}
+            if shape.kind == "train":
+                out["labels"] = meta(b, s, *k)
+            if cfg.family == "vlm":
+                out["image_embeds"] = meta(
+                    b, cfg.num_image_tokens, cfg.d_model,
+                    dtype=L._dtype(cfg.compute_dtype))
+            return out
+        return {"tokens": meta(b, *k), "lengths": meta(b)}
+
     def _cast(self, params):
         """Mixed precision: every fp32 leaf computes in ``compute_dtype``
         (the MoE router, the gate biases and the Mamba2 ``a_log``,
@@ -201,7 +257,7 @@ class LM:
         decode ``positions [B]``)."""
         cfg = self.cfg
         if cfg.family == "audio":
-            x = sum(p["embed"][i][tokens[:, :, i]]
+            x = sum(_lookup(tokens[:, :, i], p["embed"][i])
                     for i in range(cfg.num_codebooks))
             if positions is None:
                 pos = torch.arange(x.shape[1], device=x.device)
@@ -210,7 +266,7 @@ class LM:
                 x = x + sinusoidal_positions(positions, cfg.d_model,
                                              x.dtype)[:, None, :]
         else:
-            x = p["embed"][tokens]
+            x = _lookup(tokens, p["embed"])
         if cfg.embed_scale:
             x = x * math.sqrt(cfg.d_model)
         return x.to(L._dtype(cfg.compute_dtype))
@@ -313,10 +369,12 @@ class LM:
         for i in range(nchunk):
             logits = self._logits(params, x[:, i * cs:(i + 1) * cs])
             ls = labels[:, i * cs:(i + 1) * cs]
-            lse = torch.logsumexp(logits, dim=-1)
-            tgt = torch.gather(logits, -1,
-                               ls.clamp(min=0)[..., None])[..., 0]
-            mask = (ls >= 0).float()
+            # The gathered target keeps its size-1 dim until the sum: on a
+            # DTensor, the gather of vocab-sharded logits is a masked
+            # partial whose mask has that shape.
+            lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+            tgt = torch.gather(logits, -1, ls.clamp(min=0)[..., None])
+            mask = (ls >= 0).float()[..., None]
             tot = tot + torch.sum((lse - tgt) * mask)
             cnt = cnt + torch.sum(mask)
         xent = tot / torch.clamp(cnt, min=1.0)
@@ -362,12 +420,14 @@ class LM:
         return zeros(self.cache_specs(batch, max_len))
 
     @torch.no_grad()
-    def prefill(self, params, batch, *, max_len: int | None = None):
+    def prefill(self, params, batch, *, max_len: int | None = None,
+                cache=None):
         """Process the prompt, returning ``(cache, last-position logits)``.
 
         batch: ``tokens [B, S]`` (audio ``[B, S, K]``), and for the vlm
         ``image_embeds [B, N, d]``.  The cache is laid out as
-        ``cache_specs(B, max_len or S)``.
+        ``cache_specs(B, max_len or S)``: ``cache``, zeroed, when given (the
+        dry run's sharded cache), else a new one.
         """
         cfg = self.cfg
         f = cfg.family
@@ -376,7 +436,8 @@ class LM:
         b, s = x.shape[:2]
         ml = max_len or s
         positions = torch.arange(s, device=self.device)
-        cache = self.init_cache(b, ml)
+        if cache is None:
+            cache = self.init_cache(b, ml)
 
         def attn(lp, h, node, idx):
             h, k, v = B.dense_block_prefill(lp, cfg, h, positions, ml)
@@ -402,10 +463,10 @@ class LM:
                 # reference's cache).
                 xa = crossp["xattn"]
                 kvn = L.rmsnorm(img, xa["kv_norm"], cfg.norm_eps)
-                cache["cross_k"][g] = (kvn @ xa["wk"]).reshape(
-                    b, -1, cfg.num_kv_heads, hd)
-                cache["cross_v"][g] = (kvn @ xa["wv"]).reshape(
-                    b, -1, cfg.num_kv_heads, hd)
+                cache["cross_k"][g] = _heads(kvn, xa["wk"],
+                                             cfg.num_kv_heads, hd)
+                cache["cross_v"][g] = _heads(kvn, xa["wv"],
+                                             cfg.num_kv_heads, hd)
                 x = B.cross_block_apply(crossp, cfg, x, img)
         elif f == "ssm":
             for g, (mls, sls) in enumerate(zip(params["mlstm"],
@@ -481,16 +542,25 @@ class LM:
         return self._logits(params, x)[:, 0], cache
 
 
+def _heads(x, w, heads: int, hd: int):
+    """``x [B, S, d]`` projected to ``[B, S, heads, hd]`` by a 2-D ``[d,
+    heads*hd]`` or 3-D ``[d, heads, hd]`` kernel."""
+    if w.dim() == 3:
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    return L._splittable(x @ w, -1, heads).reshape(x.shape[0], x.shape[1],
+                                                    heads, hd)
+
+
 def _cross_decode(p, cfg: ModelConfig, x, ck, cv):
     """Cross attention for decode: x ``[B, 1, d]`` against the image K/V
     ``[B, N, Hkv, hd]`` cached at prefill; q is not qk-normed, as in the
     reference's decode."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, 1, cfg.num_heads, hd)
+    q = _heads(x, p["wq"], cfg.num_heads, hd)
     hkv = cfg.num_kv_heads
     g = cfg.num_heads // hkv
-    qg = q.reshape(b, 1, hkv, g, hd)
+    qg = L._splittable(q, 2, hkv).reshape(b, 1, hkv, g, hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           ck.float()) / math.sqrt(hd)
     w = torch.softmax(logits, dim=-1)

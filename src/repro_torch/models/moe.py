@@ -20,9 +20,15 @@ the gates renormalised by ``max(sum, 1e-9)``, the switch aux loss on the
 first choice, stable sorts by expert id.  Top-k ties: ``jax.lax.top_k``
 puts the lower index first, ``torch.topk`` promises no order among equal
 values; the port takes ``torch.topk`` as it is (fp32 probabilities of
-continuous inputs tie with probability ~0).  The port has no device mesh
-(ROADMAP.md A12), so the capacity dispatch runs as one data group (G = 1)
-and the reference's sharding hints (``_constrain``) have no counterpart.
+continuous inputs tie with probability ~0).
+
+On a device mesh (DTensor inputs, as in the dry run), the capacity
+dispatch groups the tokens per data shard, G = the data axes' size, and
+:func:`_constrain` places each group on its shard, as the reference's
+sharding hints do; on plain tensors G = 1 and ``_constrain`` returns its
+input.  Scatters are out of place: DTensor's in-place scatter into a
+replicated buffer with a sharded index keeps the buffer's data but takes
+the index's placement.
 """
 
 from __future__ import annotations
@@ -34,6 +40,50 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
+
+
+def _constrain(x, *axes):
+    """Redistribute a DTensor ``x`` on a mesh with the named axes: ``"dp"``
+    dims over the data axes ('pod', 'data'), ``"model"`` dims over 'model',
+    each where it divides; anything else is returned untouched.
+
+    Without it the capacity dispatch's products were left replicated over
+    'data', so every device computed the full global token set — a
+    data-size x FLOP waste (the reference's finding).
+    """
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    sizes = sharding.mesh_sizes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    dp_size = math.prod(sizes[a] for a in dp)
+    spec = []
+    for ax, dim in zip(axes, x.shape):
+        if ax == "dp" and dp and dim % dp_size == 0:
+            spec.append(dp if len(dp) > 1 else dp[0])
+        elif ax == "model" and "model" in sizes and dim % sizes["model"] == 0:
+            spec.append("model")
+        else:
+            spec.append(None)
+    spec += [None] * (x.dim() - len(spec))
+    return x.redistribute(mesh, sharding.placements(tuple(spec), mesh))
+
+
+def _dp_group_count(x, n: int) -> int:
+    """The data groups of a DTensor's mesh ('pod' x 'data'; 1 for a plain
+    tensor, or when they do not divide the ``n`` tokens)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return 1
+    mesh = x.device_mesh
+    g = math.prod(size for name, size in zip(mesh.mesh_dim_names, mesh.shape)
+                  if name in ("pod", "data"))
+    return g if g > 1 and n % g == 0 else 1
 
 
 def moe_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -72,17 +122,16 @@ def moe_route(p, cfg: ModelConfig, x: torch.Tensor):
     gates, experts = torch.topk(probs, mo.top_k, dim=-1)
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     me = probs.mean(dim=0)
-    first = torch.zeros(e, dtype=torch.float32, device=x.device)
-    first.scatter_add_(0, experts[:, 0], torch.ones_like(gates[:, 0]))
+    first = gates.new_zeros(e).scatter_add(0, experts[:, 0],
+                                           torch.ones_like(gates[:, 0]))
     aux = e * torch.sum(me * (first / xf.shape[0])) * mo.aux_loss_weight
     return gates, experts, aux
 
 
 def _counts(flat: torch.Tensor, e: int) -> torch.Tensor:
     """Slots per expert, int32 ``[E]``, on the device."""
-    counts = torch.zeros(e, dtype=torch.int32, device=flat.device)
-    return counts.scatter_add_(0, flat, torch.ones_like(flat,
-                                                        dtype=torch.int32))
+    return flat.new_zeros(e, dtype=torch.int32).scatter_add(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
 
 
 def _grouped(p, cfg: ModelConfig, xs, offs, experts=None):
@@ -116,41 +165,51 @@ def moe_ffn_ragged(p, cfg: ModelConfig, x, *, _experts=None):
     ys = _grouped(p, cfg, xs, offs, _experts)  # [n*k, d]
     # Unsort (slot order[i] gets sorted row i), weight by the gates and sum
     # each token's k slots in fp32.
-    ys = torch.empty_like(ys).index_copy_(0, order, ys).reshape(n, k, d)
+    ys = torch.empty_like(ys).index_copy(0, order, ys).reshape(n, k, d)
     y = torch.einsum("nkd,nk->nd", ys.float(), gates)
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
 def moe_ffn_capacity(p, cfg: ModelConfig, x, *, _experts=None):
-    """Capacity dispatch: each expert takes its first ``C = max(1,
-    int(capacity_factor * n * k / E))`` slots in sorted order (one data
-    group: no mesh), the others are dropped; the products run over ``[E,
-    C, d]``, weighted by the gates and added back in x's dtype."""
+    """Capacity dispatch, grouped per data shard (G groups of ``m = n / G``
+    tokens; G = 1 without a mesh): within each group, each expert takes its
+    first ``C = max(1, int(capacity_factor * m * k / E))`` slots in sorted
+    order, the others are dropped; the products run over ``[G, E, C, d]``,
+    weighted by the gates and added back in x's dtype."""
     mo = cfg.moe
     b, s, d = x.shape
     n, k, e = b * s, mo.top_k, mo.num_experts
-    cap = max(1, int(mo.capacity_factor * n * k / e))
-    dev = x.device
-    xf = x.reshape(n, d)
+    g = _dp_group_count(x, n)
+    m = n // g  # tokens per group
+    cap = max(1, int(mo.capacity_factor * m * k / e))
     gates, experts, aux = moe_route(p, cfg, x)
-    flat = experts.reshape(-1)
-    order = torch.argsort(flat, stable=True)
-    token_of = order // k
-    gate_of = gates.reshape(-1).index_select(0, order)
+    xg = _constrain(x.reshape(g, m, d), "dp", None, None)
+    eg = experts.reshape(g, m * k)
+    order = torch.argsort(eg, dim=-1, stable=True)  # [G, m*k]
+    token_of = order // k  # the token within its group
+    gate_of = torch.gather(gates.reshape(g, m * k), -1, order)
 
-    counts = _counts(flat, e)
-    start = counts.cumsum(0, dtype=torch.int32) - counts
-    pos = torch.arange(cap, dtype=torch.int32, device=dev)
-    idx = (start[:, None] + pos[None, :]).clamp(0, n * k - 1)  # [E, C]
-    valid = pos[None, :] < counts[:, None]  # [E, C]
-    idx = idx.reshape(-1).long()
-    tok_idx = token_of.index_select(0, idx)  # [E*C]
-    xe = xf.index_select(0, tok_idx) * valid.reshape(-1, 1).to(x.dtype)
-    offs = torch.arange(1, e + 1, dtype=torch.int32, device=dev) * cap
-    ye = _grouped(p, cfg, xe, offs, _experts)  # [E*C, d]
+    counts = eg.new_zeros((g, e), dtype=torch.int32).scatter_add(
+        1, eg, torch.ones_like(eg, dtype=torch.int32))
+    start = counts.cumsum(-1, dtype=torch.int32) - counts  # [G, E]
+    pos = torch.arange(cap, dtype=torch.int32, device=x.device)
+    idx = (start[..., None] + pos).clamp(0, m * k - 1)  # [G, E, C]
+    valid = (pos < counts[..., None]).reshape(g, e * cap)
+    idx = idx.reshape(g, e * cap).long()
+    tok_idx = torch.gather(token_of, -1, idx)  # [G, E*C]
+    xe = torch.gather(xg, 1, tok_idx[..., None].expand(g, e * cap, d))
+    xe = _constrain(xe * valid[..., None].to(x.dtype), "dp", None, None)
+    offs = torch.arange(1, e + 1, dtype=torch.int32, device=x.device) * cap
+    # One group is the kernel's [E*C, d]; more carry their group dim.
+    ye = _grouped(p, cfg, xe[0] if g == 1 else xe, offs, _experts)
+    ye = _constrain(ye.reshape(g, e * cap, d), "dp", None, None)
 
-    g = gate_of.index_select(0, idx) * valid.reshape(-1)
-    val = ye * g[:, None].to(ye.dtype)
-    y = torch.zeros((n, d), dtype=val.dtype, device=dev)
-    y.index_add_(0, tok_idx, val)
-    return y.reshape(b, s, d).to(x.dtype), aux
+    wgt = torch.gather(gate_of, -1, idx) * valid
+    val = ye * wgt[..., None].to(ye.dtype)
+    y = val.new_zeros((g, m, d)).scatter_add(
+        1, tok_idx[..., None].expand(g, e * cap, d), val)
+    y = _constrain(y, "dp", None, None)
+    # Constrained again after the reshape, so its gradient reaches the
+    # reshape's backward placed on the groups' axes alone.
+    y = _constrain(y.reshape(b, s, d), "dp", None, None)
+    return y.to(x.dtype), aux

@@ -75,10 +75,11 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init(params) -> dict:
-    """Step 0 and fp32 zero moments, on the params' device."""
+    """Step 0 and fp32 zero moments, on the params' device (each moment
+    placed as its param)."""
     first = next(leaves(params))[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    # zeros_like keeps a DTensor leaf's placement (the dry run's moments).
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return {"step": torch.zeros((), dtype=torch.int32, device=first.device),
             "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 

@@ -80,13 +80,15 @@ TRIMMED = {
                          "def _head_matrix", "def backbone", "def loss",
                          "def cache_specs", "def init_cache", "def prefill",
                          "def decode_step", "def _cross_decode",
+                         "def param_specs", "def input_specs",
                          "def sinusoidal_positions", '"dense"', '"moe"',
                          '"ssm"', '"hybrid"', '"audio"', '"vlm"',
                          "n_groups", "per_group", "n_tail"),
                         ("jax", "jnp")),
-    # elastic alone: sharding and hlo_analysis are ROADMAP.md A12.
-    "distributed/__init__.py": (("elastic",),
-                                ("jax", "sharding", "hlo_analysis")),
+    # elastic and sharding; the HLO parser's counterpart is cost_analysis,
+    # under its own name (the port has no HLO to parse).
+    "distributed/__init__.py": (("elastic", "sharding"),
+                                ("jax", "hlo_analysis")),
 }
 
 
@@ -126,7 +128,11 @@ def test_every_port_module_is_copied_trimmed_or_ported():
               "serving/__init__.py", "serving/engine.py",
               "launch/__init__.py", "launch/serve.py", "launch/train.py",
               "optim/adamw.py", "optim/compression.py",
-              "training/train_loop.py", "checkpoint/checkpointer.py"}
+              "training/train_loop.py", "checkpoint/checkpointer.py",
+              "launch/mesh.py", "launch/dryrun.py",
+              "distributed/sharding.py",
+              # hlo_analysis.py's counterpart, under its own name.
+              "distributed/cost_analysis.py"}
     have = {str(p.relative_to(ROOT / "repro_torch"))
             for p in (ROOT / "repro_torch").rglob("*.py")}
     assert have == set(COPIES) | set(TRIMMED) | ported

@@ -191,15 +191,25 @@ def test_bf16_cast_matches_per_call_cast(pair):
 
 
 def test_every_family_constructs_and_attn_3d_raises():
-    """The port's LM takes all six families; the [d, H, hd] projection
-    layout is not ported and names its ROADMAP item."""
+    """The port's LM takes all six families, with the [d, H, hd]
+    projection layout too (it no longer raises): its attention kernels are
+    3-D, ``wo`` ``[H, hd, d]``."""
     from repro_torch.configs import ARCH_IDS
 
     families = set()
     for arch in ARCH_IDS:
         cfg = t_reduced_config(t_get_config(arch))
         families.add(TLM(cfg, device="cpu").cfg.family)
-        with pytest.raises(NotImplementedError) as err:
-            TLM(dataclasses.replace(cfg, attn_3d_kernels=True), device="cpu")
-        assert "A8.3" in str(err.value) and "ROADMAP.md" in str(err.value)
+        c3 = dataclasses.replace(cfg, attn_3d_kernels=True)
+        p3 = TLM(c3, device="meta").param_specs()
+        if cfg.family == "ssm":
+            continue  # xLSTM has no attention block
+        blocks = (p3.get("layers") or p3.get("self_layers")
+                  or [p3["shared_attn"]])
+        first = blocks[0][0] if isinstance(blocks[0], list) else blocks[0]
+        hd = cfg.resolved_head_dim
+        assert tuple(first["attn"]["wq"].shape) == (cfg.d_model,
+                                                    cfg.num_heads, hd)
+        assert tuple(first["attn"]["wo"].shape) == (cfg.num_heads, hd,
+                                                    cfg.d_model)
     assert families == {"dense", "moe", "ssm", "hybrid", "audio", "vlm"}
