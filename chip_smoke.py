@@ -42,7 +42,18 @@ exits nonzero):
               the routing equal bytewise; then the grouped products alone
               (ops.moe_experts) on both routes, timed cold beside their
               plain version, their bound (the experts hit, read once; 2 x
-              slots x 3 x d x ff operations) and torch._grouped_mm.
+              slots x 3 x d x ff operations) and torch._grouped_mm.  Then
+              their backward (ops.moe_experts under autograd, the kernels
+              of csrc/moe_experts_bwd.cu) against
+              moe_experts_backward_plain on layer 0 at the first prefill
+              and at train (d)'s shapes (B 4 x S 1,024 routed: M 24,576),
+              bf16 and fp32, and on grok-1-314b's gelu GLU at its widths
+              (d 6,144, ff 32,768, E 8, 512 rows, bf16): each gradient
+              within MOE_TOL of its largest element, two calls bit for
+              bit, no host sync, an exact-zero dW for an expert with no
+              rows; the call and each kernel timed cold beside the plain
+              version, the bound (2 x 3 x 2 M d ff operations) and
+              torch._grouped_mm's six products.
 4. kernels  — every kernel against its plain PyTorch version on the card,
               on the inputs its main path gives it.  The replay kernels,
               bytewise, on the inputs recorded from one run of the main
@@ -137,8 +148,17 @@ exits nonzero):
               of each of FAMILY_ARCHS cut to one group, B 2 x S 512:
               forward, backward and AdamW s, a finite loss and gradients
               (hard checks); the sLSTM block's forward and backward alone;
-              moonshot cut to 2 layers must raise moe_experts'
-              NotImplementedError under autograd.
+              the same step of moonshot cut to 2 layers, one backward of
+              the experts' kernels per layer.  (d) moonshot-v1-16b-a3b at
+              full width cut to 4 of 48 layers (2.42 B parameters, 409 M
+              active; vocab capped at 32,768) through the launcher: 12
+              steps of B 8 x S 1,024, 2 microbatches, remat; finite
+              losses and grad norms, the last 4 losses' mean below the
+              first 4's, one backward call per MoE layer, microbatch and
+              step on the card's bf16 route (hard checks); step ms
+              (median from step 4), tokens/s, model TFLOP/s (8 x active
+              params x tokens / step), peak memory, and a traced window
+              of 2 steps with the MoE kernels' share of device time.
    mesh     — the distributed layer (repro_torch.launch.mesh,
               distributed.sharding, optim.compression,
               distributed.cost_analysis, launch.dryrun), gemma-2b at full
@@ -203,9 +223,9 @@ and left clean: 64 MB written, then 128 MB read, neither timed.
 
 Each phase's model is freed (gc, empty_cache) before the next allocates.
 
-Then one line {"kernels": [...]} (the six ported TPU kernels and
-moe_experts, which has no TPU counterpart: tpu_kernel false), the
-nvidia-smi line, and last
+Then one line {"kernels": [...]} (the six ported TPU kernels, and
+moe_experts and moe_experts_backward, which have no TPU counterpart:
+tpu_kernel false), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Needs one CUDA device; it refuses to run
 without one or outside a checkout of the repository.
 
@@ -320,14 +340,20 @@ FAMILY_VLM_GATES = dict(gate=-0.6, mlp_gate=0.5)
 # steps timed from TRAIN["timed_from"], a traced window of 2 steps.  (b)
 # checkpoint and restart: gemma-2b at full width cut to 2 layers (~287 M
 # parameters, ~3.4 GB a checkpoint).  (c) one train step of each family
-# cut to one group (a cut forced by the phase's time), B 2 x S 512; and
-# moonshot cut to 2 layers must refuse autograd on the card.
+# cut to one group (a cut forced by the phase's time), B 2 x S 512, and of
+# moonshot cut to TRAIN_MOE_LAYERS, its experts through the backward
+# kernels.  (d) moonshot-v1-16b-a3b at full width through the launcher,
+# cut to 4 of its 48 layers by one card: 2,416,461,824 parameters (409 M
+# active) are 38.7 GB of fp32 params, gradients and AdamW moments; the
+# full depth's 28 B would need ~450 GB.
 TRAIN = dict(arch="gemma-2b", batch=8, seq=1024, microbatches=2, steps=20,
              timed_from=5, profile_steps=2)
 TRAIN_CKPT = dict(layers=2, batch=4, seq=256, steps=8, launcher_steps=12,
                   fail_at=6, ckpt_every=4)
 TRAIN_FAMILIES = dict(batch=2, seq=512)
 TRAIN_MOE_LAYERS = 2
+TRAIN_MOE = dict(arch="moonshot-v1-16b-a3b", layers=4, batch=8, seq=1024,
+                 microbatches=2, steps=12, timed_from=4, profile_steps=2)
 # The model FLOPs of a step with remat: 6 per parameter and token, 2 more
 # for the recomputed forward.
 TRAIN_FLOPS_PER_PARAM_TOKEN = 6 + 2
@@ -341,8 +367,20 @@ MESH_TIMED = 5
 MESH_DRYRUN = (("gemma-2b", "train_4k", False),
                ("moonshot-v1-16b-a3b", "decode_32k", True))
 # Phase moe: moe_ffn against its plain version, per compute dtype (outputs
-# of order 1, compared in fp32).
+# of order 1, compared in fp32).  The experts' backward is held at the same
+# numbers of each gradient's largest element (moe_grads_held): its
+# gradients grow with the rows summed (dW ~ 100 at the train shapes), and
+# an element whose sum cancels carries the rounding of the terms, not of
+# itself: in fp32 2.0e-4 on such an element (2e-6 of the tensor), and in
+# bf16 more, as both sides round dH and dA after sums in other orders.
 MOE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# The backward's cases beyond serve_moe's recorded prefill: one
+# microbatch's MoE call at train (d)'s shapes (B 4 x S 1,024 tokens, top-6:
+# M 24,576), and grok-1-314b's gelu GLU at its widths on one layer's
+# experts (d 6,144, ff 32,768, E 8, top-2 of 256 tokens; 9.7 GB of bf16
+# weights).
+MOE_BWD_TRAIN = dict(batch=4, seq=1024)
+MOE_BWD_GROK = dict(arch="grok-1-314b", tokens=256)
 
 # The large-table case of stage 2: a table of 4,096 rows.
 LARGE_T = 4096
@@ -376,9 +414,15 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/moe_experts.cu",
         replaces="none: no TPU kernel (jax.lax.ragged_dot, XLA, at "
                  "src/repro/models/moe.py:116)"),
+    # Their backward (dh, dx, dw): the reference trains through XLA's
+    # autodiff of ragged_dot.  Reported at train (d)'s shapes, bf16.
+    "moe_experts_backward": dict(
+        source="src/repro_torch/kernels/csrc/moe_experts_bwd.cu",
+        replaces="none: no TPU kernel (XLA's autodiff of "
+                 "jax.lax.ragged_dot at src/repro/models/moe.py:116)"),
 }
 # Kernels with no TPU counterpart (a kernel of the port alone).
-NO_TPU_KERNEL = ("moe_experts",)
+NO_TPU_KERNEL = ("moe_experts", "moe_experts_backward")
 # Kernels on no path of the system: the JAX package reaches them through
 # its kernel API alone, so their launches are those of phase kernel_bench.
 BENCH_KERNELS = ("msi_transition", "flash_attention")
@@ -1247,7 +1291,7 @@ def no_host_sync(device):
     return block()
 
 
-def phase_moe(device, cfg, rec):
+def phase_moe(device, cfg, rec, scale: float = 1.0):
     """Phase moe: ``moe_ffn`` on the card against its plain version
     (``_experts=moe_experts_plain``) on layer 0's inputs recorded by
     serve_moe (the widest decode step's and the first prefill's), with the
@@ -1256,8 +1300,9 @@ def phase_moe(device, cfg, rec):
     the routing of both paths equal bytewise, every call on the route its
     dtype gives.  Then the grouped products alone (``ops.moe_experts``)
     on both routes, held to the plain version and timed cold beside it,
-    their bound and ``torch._grouped_mm``; and ``moe_ffn`` itself timed
-    cold (both dispatches, bf16)."""
+    their bound and ``torch._grouped_mm``; ``moe_ffn`` itself timed cold
+    (both dispatches, bf16); and the experts' backward kernels
+    (``moe_backward``)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1349,7 +1394,251 @@ def phase_moe(device, cfg, rec):
                     timed[f"{name} {dtype}"][f"moe_ffn_{impl}_ms"] = (
                         time_ms_cold(lambda: M.moe_ffn(p, c, x), 10, device))
         del p
-    return dict(held=held_rows, products=timed)
+    return dict(held=held_rows, products=timed,
+                backward=moe_backward(device, cfg, rec, scale))
+
+
+MOE_BWD_KERNELS = ("dh", "dx", "dw_up", "dw_down")  # launch order
+
+
+def moe_grads_held(name, got, want, dtype: str) -> tuple[float, float]:
+    """The experts' gradients against the plain backward's: the largest
+    error of each within MOE_TOL[dtype] of that gradient's largest
+    element.  Returns (max abs error, the largest such element); raises
+    beyond."""
+    errs, scale = [], 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if g is None and w is None:
+            continue
+        label = f"{name} grad {i}"
+        if g is None or g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label}: {g} vs {w.dtype}"
+                                 f"{tuple(w.shape)}")
+        if not w.numel():
+            continue
+        err = float((g.float() - w.float()).abs().max())
+        s = float(w.float().abs().max())
+        if not err <= MOE_TOL[dtype] * s:
+            raise AssertionError(f"{label}: max abs err {err} beyond "
+                                 f"{MOE_TOL[dtype]} of {s}")
+        errs.append(err)
+        scale = max(scale, s)
+    return max(errs, default=0.0), scale
+
+
+def grouped_mm_backward_library(dy, xs, offs, w_gate, w_up, w_down, act,
+                                a, b):
+    """The yardstick of the backward: its six products as
+    ``torch._grouped_mm`` calls (the weights' transposes as views, the
+    weight gradients as the 2-D x 2-D form grouped over the rows) and the
+    GLU's backward in eager ops; used nowhere in the port."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import activation, activation_grad
+
+    gm = torch._grouped_mm
+    dh = gm(dy, w_down.transpose(-2, -1), offs=offs).float()
+    act_a = activation(act, a)
+    da = (dh * b.float() * activation_grad(act, a.float())).to(xs.dtype)
+    db = (dh * act_a.float()).to(xs.dtype)
+    return (gm(da, w_gate.transpose(-2, -1), offs=offs)
+            + gm(db, w_up.transpose(-2, -1), offs=offs),
+            gm(xs.t(), da, offs=offs), gm(xs.t(), db, offs=offs),
+            gm((act_a * b).t(), dy, offs=offs))
+
+
+def moe_bwd_kernel_ms(fn, device, reps: int) -> dict:
+    """Each backward kernel's device time a call, from a torch.profiler
+    window of ``reps`` calls of ``fn`` (one backward), each after the cold
+    flush of ``time_ms_cold``: the kernels are told apart by launch order
+    (``MOE_BWD_KERNELS``; dh and dx are one template).  None where the
+    profiler saw no device time (CPU rehearsals)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    fn()
+    dirty = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    clean = torch.zeros(CLEAN_BYTES // 8, dtype=torch.int64, device=device)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            dirty.zero_()
+            clean.max()
+            fn()
+        torch.cuda.synchronize(device)
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "moe_bwd_" in e.name),
+                 key=lambda e: e.time_range.start)
+    if len(evs) != reps * len(MOE_BWD_KERNELS):
+        raise AssertionError(f"profiled {len(evs)} backward kernels in "
+                             f"{reps} calls")
+    return {k: sum(e.device_time_total for e in evs[i::len(
+        MOE_BWD_KERNELS)]) / reps / 1e3
+        for i, k in enumerate(MOE_BWD_KERNELS)}
+
+
+def moe_backward_case(device, name, args, dtype: str, timed: bool):
+    """One backward case: ``args`` (xs, offs, w_gate, w_up, w_down, act)
+    through ``ops.moe_experts`` under autograd, two backward calls under
+    ``set_sync_debug_mode("error")``, bit-identical, held to
+    ``moe_experts_backward_plain`` (``moe_grads_held``), experts with no
+    rows an exact-zero dW; ``timed``: the call, each kernel, the plain
+    version and ``torch._grouped_mm`` timed cold beside the bound."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_experts import moe_experts_backward_plain
+
+    xs, offs, w_gate, w_up, w_down, act = args
+    m, d = xs.shape
+    e, _, ff = w_up.shape
+    dy = torch.randn((m, d), device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED)).to(xs.dtype)
+    # Leaves sharing the arguments' storage (grok's weights are 9.7 GB).
+    ins = [t.detach().requires_grad_()
+           for t in (xs, w_gate, w_up, w_down) if t is not None]
+    call = ([ins[0], offs] + ([ins[1]] if w_gate is not None else [None])
+            + ins[-2:])
+    out = ops.moe_experts(*call, act)
+    before = (ops.LAUNCHES["moe_experts_backward"], dict(ops.MOE_BWD_ROUTES))
+    with no_host_sync(device):
+        got = torch.autograd.grad(out, ins, dy, retain_graph=True)
+        again = torch.autograd.grad(out, ins, dy, retain_graph=True)
+    sync(device)
+    label = f"moe_experts_backward ({name}, {dtype})"
+    if not all(torch.equal(g, h) for g, h in zip(got, again)):
+        raise AssertionError(f"{label}: two calls differ")
+    del again
+    route = ops._moe_route(xs.dtype, d, ff)
+    if device.type == "cuda" and (
+            ops.LAUNCHES["moe_experts_backward"] != before[0] + 2
+            or ops.MOE_BWD_ROUTES[route] != before[1][route] + 2):
+        raise AssertionError(f"{label}: not two {route} backward calls")
+    grads = list(got)
+    if w_gate is None:
+        grads.insert(1, None)
+    want = moe_experts_backward_plain(dy, xs, offs, w_gate, w_up, w_down,
+                                      act)
+    err, scale = moe_grads_held(label, grads, want, dtype)
+    ends = offs.long()
+    counts = ends - torch.cat([ends.new_zeros(1), ends[:-1]])
+    empty = (counts == 0).nonzero().flatten().tolist()
+    if any(g[empty].any() for g in grads[1:] if g is not None and empty):
+        raise AssertionError(f"{label}: an expert with no rows has a dW")
+    row = dict(M=m, d=d, ff=ff, E=e, act=act, glu=w_gate is not None,
+               experts_hit=e - len(empty), route=route, max_abs_err=err,
+               grad_scale=scale, err_of_scale=err / scale if scale else 0.0,
+               tolerance=MOE_TOL[dtype], bit_identical=True)
+    if timed:
+        el = xs.element_size()
+        mats = 3 if w_gate is not None else 2
+        hit = e - len(empty)
+        nops = 2 * mats * 2 * m * d * ff
+        # Read once: xs, dy, the saved products, the experts hit; written
+        # once: d_xs and every expert's dW.
+        nbytes = (el * (2 * m * d + (mats - 1) * m * ff + hit * mats * d * ff
+                        + m * d + e * mats * d * ff) + offs.numel() * 4)
+        bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, ins, dy, retain_graph=True)
+        row.update(
+            ms=time_ms_cold(bwd, 10, device),
+            kernels_ms=moe_bwd_kernel_ms(bwd, device, 5),
+            plain_ms=time_ms_cold(lambda: moe_experts_backward_plain(
+                dy, xs, offs, w_gate, w_up, w_down, act), 3, device),
+            bytes=nbytes, flops=nops,
+            bound=bound_ms(nbytes, nops, TENSOR_OPS_S
+                           if dtype != "float32" else ALU_OPS_S),
+            library_ms=None)
+        row["share_of_bound"] = row["bound"][0] / row["ms"]
+        if (device.type == "cuda" and dtype != "float32"
+                and w_gate is not None and name != "grok"):
+            gm = torch._grouped_mm
+            a, b = gm(xs, w_gate, offs=offs), gm(xs, w_up, offs=offs)
+            lib_args = (dy, xs, offs, w_gate, w_up, w_down, act, a, b)
+            try:
+                lib = grouped_mm_backward_library(*lib_args)
+            except Exception as exc:  # the yardstick only
+                row["library_error"] = f"{type(exc).__name__}: {exc}"[:200]
+            else:
+                row["library_err"] = moe_grads_held(
+                    f"torch._grouped_mm backward ({name})", list(lib),
+                    want, dtype)[0]
+                row["library_ms"] = time_ms_cold(
+                    lambda: grouped_mm_backward_library(*lib_args), 10,
+                    device)
+    return row
+
+
+def grok_experts_args(device, scale: float = 1.0):
+    """One layer's experts of grok-1-314b at its widths (reduced below
+    scale 1), bf16 weights from SEED scaled as ``moe_params`` scales them,
+    and 256 tokens' top-2 rows sorted by expert: the grouped products'
+    arguments."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = get_config(MOE_BWD_GROK["arch"])
+    if scale < 1:
+        cfg = reduced_config(cfg)
+    d, e, ff = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def normal(shape, s):
+        w = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        return w.mul_(s)
+
+    w_gate = normal((e, d, ff), 1 / math.sqrt(d))
+    w_up = normal((e, d, ff), 1 / math.sqrt(d))
+    w_down = normal((e, ff, d), 1 / math.sqrt(ff))
+    rng = np.random.default_rng(SEED)
+    top = np.argsort(rng.random((MOE_BWD_GROK["tokens"], e)), axis=1)[:, :2]
+    counts = np.bincount(top.reshape(-1), minlength=e)
+    m = int(counts.sum())
+    xs = normal((m, d), 1.0)
+    offs = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=device)
+    act = "silu" if cfg.activation == "swiglu" else "gelu"
+    return (xs, offs, w_gate, w_up, w_down, act)
+
+
+def moe_backward(device, cfg, rec, scale: float = 1.0):
+    """Phase moe, the backward: ``moe_backward_case`` on serve_moe's layer 0
+    at its first prefill (bf16 and fp32, both timed) and at train (d)'s
+    shapes (random hidden states of B 4 x S 1,024 routed by layer 0: bf16
+    timed, fp32 held), then grok-1-314b's gelu GLU at its widths (bf16,
+    timed)."""
+    import torch
+
+    mb = dict(MOE_BWD_TRAIN)
+    if scale < 1:
+        mb.update(batch=2, seq=16)
+    x_train = torch.randn((mb["batch"], mb["seq"], cfg.d_model),
+                          device=device, generator=torch.Generator(
+                              device=device).manual_seed(SEED))
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        p = {k: v.to(tdt) for k, v in rec["params"].items()}
+        for name, x in (("prefill", rec["prefill"]), ("train", x_train)):
+            args = grouped_args(p, cfg, x.to(tdt))
+            out[f"{name} {dtype}"] = moe_backward_case(
+                device, name, args, dtype,
+                timed=dtype == "bfloat16" or name == "prefill")
+            del args
+            free_device(device)
+        del p
+    args = grok_experts_args(device, scale)
+    out["grok bfloat16"] = moe_backward_case(device, "grok", args,
+                                             "bfloat16", timed=True)
+    del args
+    free_device(device)
+    return out
 
 
 def paged_case(rng, b, hq, hkv, d, page, maxp, dtype, device, lens=None):
@@ -2294,22 +2583,26 @@ def train_restart(device, scale: float = 1.0):
                               final_loss=run["final_loss"]))
 
 
-def train_family_step(device, arch: str, scale: float = 1.0):
-    """Phase train (c): one step of ``arch`` cut to one group (the
-    configs' fp32 params, bf16 compute), B 2 x S 512: forward, backward
-    and AdamW each timed; a finite loss and a finite gradient on every
-    leaf are hard checks.  For the ssm family, the sLSTM block's forward and
-    backward alone on the same shapes (its Python time loop)."""
+def train_family_step(device, arch: str, scale: float = 1.0,
+                      layers: int | None = None):
+    """Phase train (c): one step of ``arch`` cut to one group, or to
+    ``layers`` (the configs' fp32 params, bf16 compute), B 2 x S 512:
+    forward, backward and AdamW each timed; a finite loss and a finite
+    gradient on every leaf are hard checks, and on the card an MoE model's
+    experts take the backward kernels once per layer.  For the ssm family,
+    the sLSTM block's forward and backward alone on the same shapes (its
+    Python time loop)."""
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.models import blocks as B
     from repro_torch.models.model import LM
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import AdamWConfig
 
     probe = train_config(arch, scale)
-    group = (probe.slstm_every or probe.shared_attn_every
-             or probe.cross_attn_every or 4)
+    group = layers or (probe.slstm_every or probe.shared_attn_every
+                       or probe.cross_attn_every or 4)
     cfg = train_config(arch, scale, group)
     f = dict(TRAIN_FAMILIES)
     if scale < 1:
@@ -2330,14 +2623,20 @@ def train_family_step(device, arch: str, scale: float = 1.0):
     loss, _ = model.loss(params, batch)
     sync(device)
     fwd_s = time.perf_counter() - t
+    before = dict(ops.MOE_BWD_ROUTES)
     t = time.perf_counter()
     loss.backward()
     sync(device)
     bwd_s = time.perf_counter() - t
+    bwd = {k: ops.MOE_BWD_ROUTES[k] - before[k] for k in before}
     loss = float(loss.detach())
     if not math.isfinite(loss):
         raise AssertionError(f"train {arch}: loss {loss}")
     check_grads(params, f"train {arch}")
+    moe_layers = cfg.num_layers if cfg.family == "moe" else 0
+    if device.type == "cuda" and sum(bwd.values()) != moe_layers:
+        raise AssertionError(f"train {arch}: {bwd} moe_experts backward "
+                             f"calls, {moe_layers} MoE layers")
     opt = adamw.init(params)
     grads = adamw.tree_map(lambda p: p.grad, params)
     sync(device)
@@ -2349,6 +2648,7 @@ def train_family_step(device, arch: str, scale: float = 1.0):
                params=sum(p.numel() for p in param_leaves(params)),
                batch=f["batch"], seq=f["seq"], loss=loss,
                forward_s=fwd_s, backward_s=bwd_s, adamw_s=adamw_s,
+               moe_backward_routes=bwd,
                peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9
                if device.type == "cuda" else None)
     if cfg.family == "ssm":
@@ -2372,38 +2672,128 @@ def train_family_step(device, arch: str, scale: float = 1.0):
     return out
 
 
-def train_moe_refuses(device, scale: float = 1.0):
-    """Phase train (c): moonshot cut to 2 layers under autograd raises the
-    experts' NotImplementedError on the card (no backward kernel); on the
-    CPU (rehearsals) the plain products run and the loss has a
-    gradient."""
+def train_moe(device, scale: float = 1.0):
+    """Phase train (d): moonshot-v1-16b-a3b at full width cut to
+    TRAIN_MOE["layers"] through ``repro_torch.launch.train.run`` (remat, 2
+    microbatches, seed SEED, no checkpoints).  Hard checks: finite losses
+    and grad norms, the last 4 losses' mean below the first 4's, and on
+    the card one ``moe_experts_backward`` call per MoE layer, microbatch
+    and step, all on the route bf16 gives.  Records step ms (median from
+    step TRAIN_MOE["timed_from"]), tokens/s, model TFLOP/s (8 x active
+    params x tokens / step), peak memory, and a traced window of 2 steps
+    of a fresh model: kernels a step, the idle share, and the MoE forward
+    and backward kernels' share of device time."""
+    import statistics
+
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
     from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.train_loop import make_train_step
 
-    cfg = train_config("moonshot-v1-16b-a3b", scale, TRAIN_MOE_LAYERS)
-    model = LM(cfg, device=device)
-    params = init_params(model, device)
-    for p in param_leaves(params):
-        p.requires_grad_(True)
-    batch = family_batch(cfg, 2, 64, device, generate=False)
-    batch["labels"] = batch["tokens"]
-    try:
-        model.loss(params, batch)[0].backward()
-    except NotImplementedError as e:
-        if device.type != "cuda" or "A11.1" not in str(e):
-            raise
-        return dict(arch=cfg.arch_id, layers=cfg.num_layers, raised=str(e))
+    tr = dict(TRAIN_MOE)
+    if scale < 1:
+        tr.update(batch=4, seq=32)
+    cfg = train_config(tr["arch"], scale, tr["layers"])
+    argv = ["--arch", tr["arch"], "--device", str(device), "--remat",
+            "--seed", str(SEED), "--log-every", "4", "--steps",
+            str(tr["steps"]), "--batch", str(tr["batch"]), "--seq",
+            str(tr["seq"]), "--microbatches", str(tr["microbatches"])]
+    args = launcher.parse_args(argv)
+    sync(device)
     if device.type == "cuda":
-        raise AssertionError("moonshot trained on the card: moe_experts did "
-                             "not refuse autograd")
-    return dict(arch=cfg.arch_id, layers=cfg.num_layers, raised=None)
+        torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    t = time.perf_counter()
+    out = launcher.run(args, cfg=cfg)
+    run_s = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    launches = ops.LAUNCHES["moe_experts_backward"]
+    routes = dict(ops.MOE_BWD_ROUTES)
+    calls = cfg.num_layers * tr["microbatches"] * tr["steps"]
+    route = ops._moe_route(getattr(torch, cfg.compute_dtype), cfg.d_model,
+                           cfg.moe.d_ff_expert)
+    if device.type == "cuda" and (launches != calls
+                                  or routes[route] != calls):
+        raise AssertionError(f"train moe: {launches} backward calls "
+                             f"({routes}), expected {calls} on {route}")
+    losses, gnorms = out["losses"], out["grad_norms"]
+    if len(losses) != tr["steps"] or not all(
+            math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train moe: losses {losses}, grad norms "
+                             f"{gnorms}")
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    if not last < first:
+        raise AssertionError(f"train moe: the loss did not fall: first 4 "
+                             f"{first}, last 4 {last} ({losses})")
+    step_s = statistics.median(out["step_s"][tr["timed_from"]:])
+    tokens = tr["batch"] * tr["seq"]
+    active = cfg.active_param_count()
+    free_device(device)
+
+    # A traced window of whole steps on a fresh model.
+    model = LM(cfg, device=device, remat=True)
+    params = init_params(model, device)
+    n_params = sum(p.numel() for p in param_leaves(params))
+    opt = adamw.init(params)
+    step_fn = make_train_step(model, AdamWConfig(
+        lr=args.lr, total_steps=args.steps,
+        warmup_steps=max(1, args.steps // 20)),
+        microbatches=tr["microbatches"])
+    loader = ShardedLoader(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=tr["seq"],
+                                      global_batch=tr["batch"], seed=SEED),
+                           cfg)
+    params, opt, _ = step_fn(params, opt, loader.batch(0))
+    n = tr["profile_steps"]
+    acts = [ProfilerActivity.CUDA if device.type == "cuda"
+            else ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        sync(device)
+        t = time.perf_counter()
+        for i in range(n):
+            params, opt, m = step_fn(params, opt, loader.batch(1 + i))
+        float(m["loss"])
+        wall = time.perf_counter() - t
+    kern = device_kernels(prof)
+    busy = sum(ms for _, _, ms in kern)
+    fwd_ms = sum(ms for k, _, ms in kern
+                 if any(nm in k for nm in MOE_KERNEL_NAMES))
+    bwd_ms = sum(ms for k, _, ms in kern if "moe_bwd_" in k)
+    flops = TRAIN_FLOPS_PER_PARAM_TOKEN * active * tokens
+    window = window_line(kern, wall, n)
+    if busy:
+        window.update(moe_forward_ms=fwd_ms, moe_backward_ms=bwd_ms,
+                      moe_forward_share=fwd_ms / busy,
+                      moe_backward_share=bwd_ms / busy)
+    return dict(
+        arch=tr["arch"], layers=cfg.num_layers, d_model=cfg.d_model,
+        experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+        vocab=cfg.vocab_size, params=n_params, active_params=active,
+        param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+        moe_impl=cfg.moe_impl, batch=tr["batch"], seq=tr["seq"],
+        microbatches=tr["microbatches"], remat=True, steps=out["steps"],
+        run_s=run_s, losses=losses, grad_norms=gnorms,
+        first4_mean=first, last4_mean=last,
+        step_ms=step_s * 1e3, step_ms_all=[x * 1e3 for x in out["step_s"]],
+        tokens_per_s=tokens / step_s,
+        model_tflops=flops / step_s / 1e12,
+        model_tflops_share_of_989=flops / step_s / 989e12,
+        peak_mem_gb=peak, moe_backward_launches=launches,
+        moe_backward_routes=routes, profile=window)
 
 
 def phase_train(device, scale: float = 1.0):
     """Phase train: (a) gemma-2b at full width through the train launcher,
-    (b) checkpoint and restart, (c) every other family's step and the MoE
-    refusal; each model freed before the next."""
+    (b) checkpoint and restart, (c) every other family's step, (d)
+    moonshot at full width through the launcher; each model freed before
+    the next."""
     out = {}
     t = time.perf_counter()
     out["full"] = train_full(device, scale)
@@ -2419,7 +2809,14 @@ def phase_train(device, scale: float = 1.0):
         out["families"][arch] = dict(train_family_step(device, arch, scale),
                                      seconds=time.perf_counter() - t)
         free_device(device)
-    out["moe"] = train_moe_refuses(device, scale)
+    t = time.perf_counter()
+    out["families"]["moonshot-v1-16b-a3b"] = dict(
+        train_family_step(device, "moonshot-v1-16b-a3b", scale,
+                          TRAIN_MOE_LAYERS), seconds=time.perf_counter() - t)
+    free_device(device)
+    t = time.perf_counter()
+    out["moe"] = dict(train_moe(device, scale),
+                      seconds=time.perf_counter() - t)
     free_device(device)
     return out
 
@@ -3213,7 +3610,8 @@ def main() -> int:
             for p in sorted(ops.BUILD_DIR.glob("*.log"))}
     build_s = time.perf_counter() - t
     resources = {src: ptxas_kernels((ops.BUILD_DIR / f"{src}.log").read_text())
-                 for src in (*NO_SPILL_SOURCES, "moe_experts")}
+                 for src in (*NO_SPILL_SOURCES, "moe_experts",
+                             "moe_experts_bwd")}
     spills = [k for src in NO_SPILL_SOURCES for k, v in resources[src].items()
               if v["spill_stores"] or v["spill_loads"]]
     if spills or not all(resources.values()):
@@ -3256,6 +3654,15 @@ def main() -> int:
         shape={k: prod[k] for k in ("M", "d", "ff", "E", "experts_hit",
                                     "route")},
         ptxas=resources["moe_experts"])
+    bwd = moe["backward"]["train bfloat16"]
+    kern["moe_experts_backward"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in moe["backward"].values()),
+        tolerance=dict(MOE_TOL), ms=bwd["ms"], plain_ms=bwd["plain_ms"],
+        bound=bwd["bound"], library_ms=bwd["library_ms"],
+        kernels_ms=bwd["kernels_ms"],
+        shape={k: bwd[k] for k in ("M", "d", "ff", "E", "experts_hit",
+                                   "route")},
+        ptxas=resources["moe_experts_bwd"])
     emit({"phase": "kernels", **kern})
     free_device(device)
     ops.reset_launches()
@@ -3308,13 +3715,16 @@ def main() -> int:
               "seconds": time.perf_counter() - t, **out})
 
     # Launches on each kernel's path: the main replay cell, phase
-    # kernel_bench, the serve run (paged_attention; serve_moe's beside it)
-    # and the serve_moe run (moe_experts).
+    # kernel_bench, the serve run (paged_attention; serve_moe's beside it),
+    # the serve_moe run (moe_experts) and train (d) (moe_experts_backward).
     launches = {**main_run["launches"], **bench_launches,
                 "paged_attention": serve["launches"]["paged_attention"],
-                "moe_experts": serve_moe["launches"]["moe_experts"]}
-    if not launches["moe_experts"]:
-        raise AssertionError("serve_moe launched no moe_experts kernel")
+                "moe_experts": serve_moe["launches"]["moe_experts"],
+                "moe_experts_backward":
+                    train["moe"]["moe_backward_launches"]}
+    if not launches["moe_experts"] or not launches["moe_experts_backward"]:
+        raise AssertionError(f"serve_moe or train (d) launched no MoE "
+                             f"kernel: {launches}")
     lines = []
     for kname, info in KERNELS.items():
         k = kern[kname]
@@ -3333,7 +3743,9 @@ def main() -> int:
                           tolerance=k.get("tolerance", 0), shape=k["shape"],
                           **{key: k[key] for key in ("serial_steps",
                                                      "ns_per_step")
-                             if key in k}))
+                             if key in k},
+                          **({key: k[key] for key in ("kernels_ms", "ptxas")}
+                             if kname == "moe_experts_backward" else {})))
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

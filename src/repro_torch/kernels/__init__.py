@@ -6,8 +6,9 @@
                      materialized transition table
 * paged_attention  — decode attention over the paged KV pool (serving)
 * flash_attention  — blocked (FlashAttention-2) attention, forward only
-* moe_experts      — the MoE experts' grouped products (no TPU kernel:
-                     the JAX package leaves them to XLA's ragged_dot)
+* moe_experts      — the MoE experts' grouped products and their
+                     backward (no TPU kernel: the JAX package leaves them
+                     to XLA's ragged_dot and its autodiff)
 
 Each kernel's CUDA source lives in ``csrc/``; its plain PyTorch version
 sits in the module of the same name, and ops.py holds the wrappers that

@@ -15,6 +15,10 @@
 // the gate's product, as the reference's ragged_dot and elementwise ops
 // round.  The wrapper launches it twice: up (A = tokens, N = ff), then down
 // (A = the up output, N = d, mode 0).  Rows past offs[E-1] are not written.
+// When autograd records the call, the up launch also writes its two
+// products, rounded as above ([M, ff] each: the gate's a and the up b, or
+// b alone without a gate), for the backward kernels of moe_experts_bwd.cu;
+// under no_grad those pointers are null and nothing more is written.
 //
 // Bound.  A decode step routes a few dozen rows, so each expert it touches
 // streams its three [d, ff] matrices once: bytes.  A 500-token prefill
@@ -39,52 +43,16 @@
 // Plain C interface, bound with ctypes: the launcher returns the CUDA error
 // code of its launch (0 on success) and never synchronises.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
+
+#include "moe_experts.cuh"
 
 namespace {
 
 using namespace nvcuda;
 
-constexpr int kBM = 64;  // rows of a tile
-constexpr int kBN = 64;  // columns of a tile
-constexpr int kTcBK = 32;
-constexpr int kTcThreads = 128;
-constexpr int kSimtBK = 16;
-constexpr int kSimtThreads = 256;
-constexpr int kLdA = kTcBK + 8;  // 16-bit elements; rows stay 16-byte aligned
-constexpr int kLdB = kBN + 8;
-constexpr int kLdC = kBN + 4;    // floats
-constexpr int kLdS = kBM + 4;    // floats, simt tiles
-
 // Modes: 1 silu GLU, 2 gelu GLU, 3 silu, 4 gelu, 0 the product alone.
 constexpr int kPlain = 0;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
-
-// What a tensor of type T holds of v.
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
 
 // The output element from the fp32 sums of the first (a) and gate (b)
 // products.
@@ -96,53 +64,15 @@ __device__ __forceinline__ float epilogue(int mode, float a, float b) {
   return mode <= 2 ? act * rnd<T>(b) : act;
 }
 
-// Warp 0: which expert owns row tile t, and its rows.  Writes (expert,
-// first row, end row) to info, expert -1 if t lies past the last tile.
-__device__ void find_tile(const int* __restrict__ offs, int E, int M, int t,
-                          int* info) {
-  const int lane = threadIdx.x & 31;
-  int carry = 0, found = -1, row0 = 0, row_end = 0;
-  for (int base = 0; base < E; base += 32) {
-    const int e = base + lane;
-    int lo = 0, hi = 0;
-    if (e < E) {
-      lo = min(max(e ? offs[e - 1] : 0, 0), M);
-      hi = min(max(offs[e], lo), M);
-    }
-    const int tiles = (hi - lo + kBM - 1) / kBM;
-    int incl = tiles;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    const int start = carry + incl - tiles;
-    const unsigned hit = __ballot_sync(0xffffffffu, t >= start && t < start + tiles);
-    if (hit) {
-      const int src = __ffs(hit) - 1;
-      found = base + src;
-      row0 = __shfl_sync(0xffffffffu, lo + (t - start) * kBM, src);
-      row_end = __shfl_sync(0xffffffffu, hi, src);
-      break;
-    }
-    carry += __shfl_sync(0xffffffffu, incl, 31);
-  }
-  if (lane == 0) {
-    info[0] = found;
-    info[1] = row0;
-    info[2] = row_end;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// The output element at i, and (when the backward needs them) the two
+// products rounded to T: save gets the first, save2 the gate's.
+template <typename T>
+__device__ __forceinline__ void store(T* __restrict__ out, T* __restrict__ save,
+                                      T* __restrict__ save2, size_t i, int mode, float a,
+                                      float b) {
+  if (save) save[i] = from_f<T>(a);
+  if (save2) save2[i] = from_f<T>(b);
+  out[i] = from_f<T>(epilogue<T>(mode, a, b));
 }
 
 // ---------------------------------------------------------------------- //
@@ -151,8 +81,8 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 template <typename T>
 __global__ void __launch_bounds__(kTcThreads)
 moe_wmma_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ b2,
-                const int* __restrict__ offs, T* __restrict__ out, int M, int K, int N, int E,
-                int mode) {
+                const int* __restrict__ offs, T* __restrict__ out, T* __restrict__ save,
+                T* __restrict__ save2, int M, int K, int N, int E, int mode) {
   constexpr int kStageA = kBM * kLdA;
   constexpr int kStageB = kTcBK * kLdB;
   constexpr int kPipe = 2 * (kStageA + 2 * kStageB) * (int)sizeof(T);
@@ -257,10 +187,9 @@ moe_wmma_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __res
   for (int idx = threadIdx.x; idx < kBM * kBN; idx += kTcThreads) {
     const int r = idx / kBN, c = idx % kBN;
     const int row = row0 + r, n = col0 + c;
-    if (row < row_end && n < N) {
-      const float v = epilogue<T>(mode, sc[r * kLdC + c], glu ? sc2[r * kLdC + c] : 0.f);
-      out[(size_t)row * N + n] = from_f<T>(v);
-    }
+    if (row < row_end && n < N)
+      store<T>(out, save, save2, (size_t)row * N + n, mode, sc[r * kLdC + c],
+               glu ? sc2[r * kLdC + c] : 0.f);
   }
 }
 
@@ -270,8 +199,8 @@ moe_wmma_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __res
 template <typename T>
 __global__ void __launch_bounds__(kSimtThreads)
 moe_simt_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ b2,
-                const int* __restrict__ offs, T* __restrict__ out, int M, int K, int N, int E,
-                int mode) {
+                const int* __restrict__ offs, T* __restrict__ out, T* __restrict__ save,
+                T* __restrict__ save2, int M, int K, int N, int E, int mode) {
   __shared__ __align__(16) float sa[kSimtBK][kLdS];  // A transposed: [k][row]
   __shared__ __align__(16) float sb[kSimtBK][kLdS];
   __shared__ __align__(16) float sb2[kSimtBK][kLdS];
@@ -337,30 +266,32 @@ moe_simt_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __res
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = col0 + tx * 4 + j;
-      if (n < N) out[(size_t)row * N + n] = from_f<T>(epilogue<T>(mode, acc[i][j], acc2[i][j]));
+      if (n < N) store<T>(out, save, save2, (size_t)row * N + n, mode, acc[i][j], acc2[i][j]);
     }
   }
 }
 
 template <typename T>
 int launch(int route, const void* a, const void* b, const void* b2, const void* offs, void* out,
-           int M, int K, int N, int E, int mode, cudaStream_t stream) {
+           void* save, void* save2, int M, int K, int N, int E, int mode, cudaStream_t stream) {
   const dim3 grid((M + kBM - 1) / kBM + E, (N + kBN - 1) / kBN);
   const T* pa = static_cast<const T*>(a);
   const T* pb = static_cast<const T*>(b);
   const T* pb2 = static_cast<const T*>(b2);
   const int* po = static_cast<const int*>(offs);
   T* pout = static_cast<T*>(out);
+  T* ps = static_cast<T*>(save);
+  T* ps2 = static_cast<T*>(save2);
   if (route == 0) {
     if constexpr (sizeof(T) == 2) {
-      moe_wmma_kernel<T><<<grid, kTcThreads, 0, stream>>>(pa, pb, pb2, po, pout, M, K, N, E,
-                                                          mode);
+      moe_wmma_kernel<T><<<grid, kTcThreads, 0, stream>>>(pa, pb, pb2, po, pout, ps, ps2, M,
+                                                          K, N, E, mode);
     } else {
       return cudaErrorInvalidValue;  // no fp32 tensor-core route
     }
   } else {
-    moe_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(pa, pb, pb2, po, pout, M, K, N, E,
-                                                          mode);
+    moe_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(pa, pb, pb2, po, pout, ps, ps2, M,
+                                                          K, N, E, mode);
   }
   return cudaGetLastError();
 }
@@ -368,18 +299,22 @@ int launch(int route, const void* a, const void* b, const void* b2, const void* 
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16, 2 fp16; route: 0 wmma, 1 simt; b2 null for the
-// one-matrix modes.
+// one-matrix modes.  save and save2, each [M, N] or null, get the two
+// products rounded to the element type (the backward's saved tensors; null
+// under no_grad); save2 only in the GLU modes.
 extern "C" int moe_experts_launch(int dtype, int route, const void* a, const void* b,
-                                  const void* b2, const void* offs, void* out, int M, int K,
-                                  int N, int E, int mode, void* stream) {
+                                  const void* b2, const void* offs, void* out, void* save,
+                                  void* save2, int M, int K, int N, int E, int mode,
+                                  void* stream) {
   if (M <= 0 || N <= 0 || E <= 0 || K <= 0 || mode < 0 || mode > 4 || route < 0 || route > 1)
     return cudaErrorInvalidValue;
   if ((mode == 1 || mode == 2) != (b2 != nullptr)) return cudaErrorInvalidValue;
+  if (save2 != nullptr && b2 == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(route, a, b, b2, offs, out, M, K, N, E, mode, s);
-    case 1: return launch<__nv_bfloat16>(route, a, b, b2, offs, out, M, K, N, E, mode, s);
-    case 2: return launch<__half>(route, a, b, b2, offs, out, M, K, N, E, mode, s);
+    case 0: return launch<float>(route, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
+    case 1: return launch<__nv_bfloat16>(route, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
+    case 2: return launch<__half>(route, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,14 +2,17 @@
 own weights.
 
 The JAX package computes them with ``jax.lax.ragged_dot``
-(``repro/models/moe.py``), an XLA op and not a Pallas kernel, so they
-replace no TPU kernel.  On Hopper they are the hand-written CUDA kernels of
-``csrc/moe_experts.cu`` (launched by
-:func:`repro_torch.kernels.ops.moe_experts`).  This module holds the plain
-PyTorch version, :func:`moe_experts_plain`: a walk over the experts, one
-pair of matrix products each, with the group sizes read on the host.  The
-CPU runs and the tests use it; on the card it is only the yardstick the
-kernels are held to.
+(``repro/models/moe.py``), an XLA op and not a Pallas kernel, and trains
+through XLA's autodiff of it, so they replace no TPU kernel.  On Hopper
+they are the hand-written CUDA kernels of ``csrc/moe_experts.cu`` and,
+for the backward, ``csrc/moe_experts_bwd.cu`` (launched by
+:func:`repro_torch.kernels.ops.moe_experts` and
+:func:`~repro_torch.kernels.ops.moe_experts_backward`).  This module holds
+their plain PyTorch versions, :func:`moe_experts_plain` and
+:func:`moe_experts_backward_plain`: walks over the experts, a few matrix
+products each, with the group sizes read on the host.  The CPU runs and
+the tests use them; on the card they are only the yardsticks the kernels
+are held to.
 
 Layouts:
   xs:       [M, d]       token rows sorted by expert
@@ -26,6 +29,16 @@ w_up[e])`` without, then ``h @ w_down[e]``.  ``act`` is ``"silu"`` or
 Each product rounds to the inputs' dtype, then the activation, then the
 gate's product, as the reference's sequence of ``ragged_dot`` and
 elementwise ops does.
+
+The backward, given ``dy [M, d]``, for the rows of each expert ``e`` with
+``a = xs @ w_gate[e]`` and ``b = xs @ w_up[e]``: ``dH = dy @ w_down[e]ᵀ``;
+``dA = dH * b * act'(a)`` and ``dB = dH * act(a)`` (without a gate ``dB =
+dH * act'(b)``); ``d_xs = dA @ w_gate[e]ᵀ + dB @ w_up[e]ᵀ`` (rows past
+``offs[E-1]`` zero); ``dW_gate[e] = xsᵀ dA``, ``dW_up[e] = xsᵀ dB`` and
+``dW_down[e] = hᵀ dy``, zero for an expert with no rows.  Products
+accumulate in fp32 and round to the inputs' dtype as the forward does;
+``act'`` is taken in fp32 at the rounded products, and ``d_xs``'s two
+products share one fp32 sum and one rounding.
 """
 
 from __future__ import annotations
@@ -43,6 +56,19 @@ def activation(act: str, t: torch.Tensor) -> torch.Tensor:
     if act == "silu":
         return F.silu(t)
     return F.gelu(t, approximate="tanh")
+
+
+def activation_grad(act: str, t: torch.Tensor) -> torch.Tensor:
+    """``act'(t)``: silu's ``s (1 + t (1 - s))`` with ``s = sigmoid(t)``,
+    or the tanh-gelu's ``0.5 (1 + u) + 0.5 t (1 - u²) c (1 + 3·0.044715
+    t²)`` with ``u = tanh(c (t + 0.044715 t³))`` and ``c = √(2/π)``."""
+    if act == "silu":
+        s = torch.sigmoid(t)
+        return s * (1 + t * (1 - s))
+    c = math.sqrt(2 / math.pi)
+    u = torch.tanh(c * (t + 0.044715 * t ** 3))
+    return 0.5 * (1 + u) + 0.5 * t * (1 - u * u) * c * (
+        1 + 3 * 0.044715 * t * t)
 
 
 def moe_experts_plain(xs: torch.Tensor, offs: torch.Tensor, w_gate,
@@ -64,6 +90,46 @@ def moe_experts_plain(xs: torch.Tensor, offs: torch.Tensor, w_gate,
             out[start:end] = h @ w_down[e]
         start = end
     return out
+
+
+def moe_experts_backward_plain(dy: torch.Tensor, xs: torch.Tensor,
+                               offs: torch.Tensor, w_gate, w_up: torch.Tensor,
+                               w_down: torch.Tensor, act: str):
+    """The gradients of :func:`moe_experts_plain` for ``dy`` ``[M, d]``,
+    written out expert by expert (the formulas of the module docstring):
+    ``(d_xs, d_w_gate, d_w_up, d_w_down)``, ``d_w_gate`` None without a
+    gate."""
+    m = xs.shape[0]
+    dt = xs.dtype
+    d_xs = torch.zeros_like(xs)
+    dws = [None if w is None else torch.zeros_like(w)
+           for w in (w_gate, w_up, w_down)]
+    start = 0
+    for e, end in enumerate(offs.tolist()):  # a host read: plain only
+        end = min(max(end, start), m)
+        if end > start:
+            x, g = xs[start:end], dy[start:end]
+            dh = (g @ w_down[e].mT).float()
+            b = x @ w_up[e]
+            if w_gate is not None:
+                a = x @ w_gate[e]
+                act_a = activation(act, a)
+                h = act_a * b
+                da = (dh * b.float() * activation_grad(act, a.float())).to(dt)
+                db = (dh * act_a.float()).to(dt)
+                # One product over [dA | dB] and [w_gate | w_up]: one fp32
+                # sum, one rounding.
+                d_xs[start:end] = torch.cat([da, db], 1) @ torch.cat(
+                    [w_gate[e], w_up[e]], 1).mT
+                dws[0][e] = x.mT @ da
+            else:
+                h = activation(act, b)
+                db = (dh * activation_grad(act, b.float())).to(dt)
+                d_xs[start:end] = db @ w_up[e].mT
+            dws[1][e] = x.mT @ db
+            dws[2][e] = h.mT @ g
+        start = end
+    return (d_xs, *dws)
 
 
 # --------------------------------------------------------------------- #

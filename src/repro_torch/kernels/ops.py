@@ -18,9 +18,11 @@ the ``flash_attention`` launches by route (:func:`_flash_route`),
 ``LANE_ROUTES`` the ``lane_replay`` launches (:func:`_lane_route`),
 ``TCAM_ROUTES`` the ``translate_lookup`` and ``protect_check`` launches
 (:func:`_tcam_route`), ``MOE_ROUTES`` the ``moe_experts`` calls
-(:func:`_moe_route`; up, then down, counted once).
+(:func:`_moe_route`; up, then down, counted once) and ``MOE_BWD_ROUTES``
+the ``moe_experts_backward`` calls (its four launches counted once).
 
-The kernels are built from ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` at
+The kernels are built from ``csrc/*.cu`` (and the ``csrc/*.cuh`` they
+include) with ``nvcc`` for ``sm_90a`` at
 first use — one ``nvcc`` per source, all started together, then one link —
 into one shared library under ``build/repro_torch_kernels/`` at the
 repository root, and loaded with ``ctypes``.  Nothing is built or loaded at
@@ -39,6 +41,7 @@ import threading
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.directory_msi import (
     build_transition_table,
@@ -49,6 +52,7 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.lane_replay import lane_replay_plain
 from repro_torch.kernels.moe_experts import (
     ACTS,
+    moe_experts_backward_plain,
     moe_experts_meta,
     moe_experts_plain,
 )
@@ -68,11 +72,12 @@ _LPM_ROWS = 1 << 20  # translate keys are log2 * 2^20 + row
 
 LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
             "paged_attention": 0, "msi_transition": 0, "flash_attention": 0,
-            "moe_experts": 0}
+            "moe_experts": 0, "moe_experts_backward": 0}
 FLASH_ROUTES = {"wgmma": 0, "simt": 0}
 LANE_ROUTES = {"smem": 0, "global": 0}
 TCAM_ROUTES = {"staged": 0, "tiled": 0}
 MOE_ROUTES = {"wmma": 0, "simt": 0}
+MOE_BWD_ROUTES = {"wmma": 0, "simt": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -80,7 +85,7 @@ _lib_lock = threading.Lock()
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES,
-                   MOE_ROUTES):
+                   MOE_ROUTES, MOE_BWD_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -102,13 +107,14 @@ def _nvcc() -> str:
 
 def build_library() -> Path:
     """Compile every ``csrc/*.cu`` into one shared library (cached by the
-    sources' content) and return its path.  Each source gets its own
+    content of the sources and the headers they include) and return its
+    path.  Each source gets its own
     ``nvcc``, all running at once; the compiler's output, ptxas report
     included, is kept beside the library in ``<source>.log``, the link's in
     ``link.log``."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
@@ -176,15 +182,22 @@ def _declare(lib) -> None:
                                            + [ctypes.c_float, i, p])
     lib.flash_attention_sm90_launch.argtypes = (
         lib.flash_attention_launch.argtypes)
-    # dtype, route, a b b2 offs out, M K N E mode, stream
-    lib.moe_experts_launch.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p]
+    # dtype, route, a b b2 offs out save save2, M K N E mode, stream
+    lib.moe_experts_launch.argtypes = [i, i] + [p] * 7 + [i] * 5 + [p]
+    # dtype, route, dy w_down offs pa pb da db h, M d ff E mode, stream
+    lib.moe_bwd_dh_launch.argtypes = [i, i] + [p] * 8 + [i] * 5 + [p]
+    # dtype, route, da w_gate db w_up offs out, M d ff E, stream
+    lib.moe_bwd_dx_launch.argtypes = [i, i] + [p] * 6 + [i] * 4 + [p]
+    # dtype, route, x g g2 offs out out2, M K N E, stream
+    lib.moe_bwd_dw_launch.argtypes = [i, i] + [p] * 6 + [i] * 4 + [p]
     for f in (lib.rm_translate, lib.rm_protect, lib.rm_blocks_per_sm,
               lib.lane_replay_launch,
               lib.lane_replay_smem_optin,
               lib.paged_attention_split_launch,
               lib.paged_attention_combine_launch, lib.msi_transition_launch,
               lib.flash_attention_launch, lib.flash_attention_sm90_launch,
-              lib.moe_experts_launch):
+              lib.moe_experts_launch, lib.moe_bwd_dh_launch,
+              lib.moe_bwd_dx_launch, lib.moe_bwd_dw_launch):
         f.restype = i
 
 
@@ -765,34 +778,33 @@ def _moe_mode(act: str, glu: bool) -> int:
     return (1 if act == "silu" else 2) + (0 if glu else 2)
 
 
-def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
-                w_up: torch.Tensor, w_down: torch.Tensor, act: str, *,
-                _route: str | None = None) -> torch.Tensor:
-    """The experts' grouped products over token rows sorted by expert:
-    ``act(xs @ w_gate[e]) * (xs @ w_up[e])`` (``act(xs @ w_up[e])`` when
-    ``w_gate`` is None), then ``@ w_down[e]``, for the rows ``[offs[e-1],
-    offs[e])`` of each expert ``e`` (layouts in
-    ``repro_torch.kernels.moe_experts``).
+def _moe_pick_route(dtype, d: int, ff: int, tensors, forced) -> str:
+    """The route of one call: ``forced`` (``_route=``) or the best the
+    tensors' real pointers allow; a forced ``"wmma"`` they do not allow
+    raises."""
+    best = _moe_route(dtype, d, ff, all(
+        t.data_ptr() % 16 == 0 for t in tensors if t is not None))
+    route = forced or best
+    if route not in _MOE_ROUTE_IDS:
+        raise ValueError(f"unknown moe_experts route {route!r}")
+    if route == "wmma" and best != "wmma":
+        raise ValueError(f"the wmma route needs bf16/fp16, d and ff "
+                         f"multiples of 8 and 16-byte aligned tensors "
+                         f"({dtype}, d {d}, ff {ff})")
+    return route
 
-    ``xs`` ``[M, d]`` and the weights (``[E, d, ff]``, ``[E, ff, d]``) in
-    one float type, ``offs`` int32 ``[E]``; ``act`` ``"silu"`` or
-    ``"gelu"``.  Returns ``[M, d]`` in xs's dtype, rows past ``offs[E-1]``
-    zero.  On the card the group sizes are never read on the host, and a
-    call that autograd would record (grad mode on, an input requiring grad)
-    raises ``NotImplementedError``: the kernels have no backward.
-    ``_route`` forces a route (tests and ``chip_smoke.py``; a forced
-    ``"wmma"`` the shapes do not allow raises).  On ``meta`` (the dry run)
-    it is :func:`~repro_torch.kernels.moe_experts.moe_experts_meta`: the
-    shape, ``xs`` ``[M, d]`` or ``[G, M, d]``, and the work of the rows."""
-    dev = xs.device
+
+def _moe_types(xs, act: str) -> None:
     if not isinstance(xs, torch.Tensor) or xs.dtype not in _PA_DTYPES:
         raise TypeError(f"xs must be a float32/bfloat16/float16 tensor, "
                         f"got {getattr(xs, 'dtype', type(xs))}")
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
-    if dev.type == "meta":
-        # The dry run: the result's shape, the routed rows' work counted.
-        return moe_experts_meta(xs, offs, w_gate, w_up, w_down)
+
+
+def _moe_shapes(xs, offs, w_gate, w_up, w_down) -> tuple[int, int, int, int]:
+    """Checks the card and CPU routes' arguments; ``(M, d, ff, E)``."""
+    dev = xs.device
     _expect(xs, "xs", xs.dtype, 2, dev)
     _expect(w_up, "w_up", xs.dtype, 3, dev)
     _expect(w_down, "w_down", xs.dtype, 3, dev)
@@ -811,52 +823,210 @@ def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
             f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)} (need "
             f"[M, d], [E], [E, d, ff], [E, d, ff], [E, ff, d], E, d, ff > 0)")
     _int32_range(-(-m // 64) + e, "row tiles")  # the grid's x
-    if dev.type != "cuda":
-        return moe_experts_plain(xs, offs, w_gate, w_up, w_down, act)
-    tensors = (xs, w_up, w_down) + (() if w_gate is None else (w_gate,))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        # The launches below write a tensor autograd cannot see through:
-        # the experts and their inputs would silently get no gradient.
-        raise NotImplementedError(
-            "moe_experts has no backward kernel: the experts' grouped "
-            "products cannot train on a CUDA device yet (ROADMAP.md Queue A "
-            "item A11.1); run under torch.no_grad() or on the CPU")
-    best = _moe_route(xs.dtype, d, ff,
-                      all(t.data_ptr() % 16 == 0 for t in tensors))
-    route = _route or best
-    if route not in _MOE_ROUTE_IDS:
-        raise ValueError(f"unknown moe_experts route {route!r}")
-    if route == "wmma" and best != "wmma":
-        raise ValueError(f"the wmma route needs bf16/fp16, d and ff "
-                         f"multiples of 8 and 16-byte aligned tensors "
-                         f"({xs.dtype}, d {d}, ff {ff})")
+    return m, d, ff, e
+
+
+def _moe_forward(xs, offs, w_gate, w_up, w_down, act, route, save):
+    """The two launches on the card; with ``save``, the up launch also
+    writes the products the backward needs: ``(out, a, b)``, ``a`` (the
+    gate's) None without a gate; else ``(out, None, None)``."""
+    m, d, ff, e = xs.shape[0], xs.shape[1], w_up.shape[2], w_up.shape[0]
+    glu = w_gate is not None
+    dev = xs.device
     out = torch.zeros_like(xs)
+    a = torch.empty((m, ff), dtype=xs.dtype, device=dev) if (
+        save and glu) else None
+    b = torch.empty((m, ff), dtype=xs.dtype, device=dev) if save else None
     if m == 0:
-        return out
+        return out, a, b
     lib = load_library()
     h = torch.empty((m, ff), dtype=xs.dtype, device=dev)
-    glu = w_gate is not None
+    # The kernel's first product is w_gate's with a gate, w_up's without.
+    first, second = (a, b) if glu else (b, None)
     dt, rid = _PA_DTYPES[xs.dtype], _MOE_ROUTE_IDS[route]
     with torch.cuda.device(dev):
         _check(lib.moe_experts_launch(
             dt, rid, xs.data_ptr(), (w_gate if glu else w_up).data_ptr(),
             w_up.data_ptr() if glu else None, offs.data_ptr(), h.data_ptr(),
+            None if first is None else first.data_ptr(),
+            None if second is None else second.data_ptr(),
             m, d, ff, e, _moe_mode(act, glu), _stream(dev)),
             f"moe_experts (up, {route})")
         _check(lib.moe_experts_launch(
             dt, rid, h.data_ptr(), w_down.data_ptr(), None, offs.data_ptr(),
-            out.data_ptr(), m, ff, d, e, 0, _stream(dev)),
+            out.data_ptr(), None, None, m, ff, d, e, 0, _stream(dev)),
             f"moe_experts (down, {route})")
     LAUNCHES["moe_experts"] += 1
     MOE_ROUTES[route] += 1
-    return out
+    return out, a, b
+
+
+class _MoeExperts(torch.autograd.Function):
+    """``moe_experts`` on the card under autograd: the forward's launches
+    keep the products ``a`` and ``b``; the backward is
+    :func:`moe_experts_backward`'s kernels."""
+
+    @staticmethod
+    def forward(ctx, xs, offs, w_gate, w_up, w_down, act, route, forced):
+        out, a, b = _moe_forward(xs, offs, w_gate, w_up, w_down, act, route,
+                                 save=True)
+        ctx.act, ctx.forced = act, forced
+        ctx.save_for_backward(xs, offs, w_gate, w_up, w_down, a, b)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        xs, offs, w_gate, w_up, w_down, a, b = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = moe_experts_backward(
+            dy, xs, offs, w_gate, w_up, w_down, ctx.act, (a, b),
+            needs=(need[0], need[2], need[3], need[4]), _route=ctx.forced)
+        return grads[0], None, *grads[1:], None, None, None
+
+
+def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
+                w_up: torch.Tensor, w_down: torch.Tensor, act: str, *,
+                _route: str | None = None) -> torch.Tensor:
+    """The experts' grouped products over token rows sorted by expert:
+    ``act(xs @ w_gate[e]) * (xs @ w_up[e])`` (``act(xs @ w_up[e])`` when
+    ``w_gate`` is None), then ``@ w_down[e]``, for the rows ``[offs[e-1],
+    offs[e])`` of each expert ``e`` (layouts in
+    ``repro_torch.kernels.moe_experts``).
+
+    ``xs`` ``[M, d]`` and the weights (``[E, d, ff]``, ``[E, ff, d]``) in
+    one float type, ``offs`` int32 ``[E]``; ``act`` ``"silu"`` or
+    ``"gelu"``.  Returns ``[M, d]`` in xs's dtype, rows past ``offs[E-1]``
+    zero.  On the card the group sizes are never read on the host.  A call
+    that autograd records (grad mode on, an input requiring grad) goes
+    through an autograd Function: its up launch also keeps the two
+    products (``2 M ff`` elements) and its backward launches the kernels of
+    :func:`moe_experts_backward`; under ``no_grad`` the two launches are
+    all.  On the CPU it is the plain version under plain autograd.
+    ``_route`` forces a route, forward and backward (tests and
+    ``chip_smoke.py``; a forced ``"wmma"`` the shapes do not allow raises).
+    On ``meta`` (the dry run) it is
+    :func:`~repro_torch.kernels.moe_experts.moe_experts_meta`: the shape,
+    ``xs`` ``[M, d]`` or ``[G, M, d]``, and the work of the rows."""
+    _moe_types(xs, act)
+    dev = xs.device
+    if dev.type == "meta":
+        # The dry run: the result's shape, the routed rows' work counted.
+        return moe_experts_meta(xs, offs, w_gate, w_up, w_down)
+    m, d, ff, e = _moe_shapes(xs, offs, w_gate, w_up, w_down)
+    if dev.type != "cuda":
+        return moe_experts_plain(xs, offs, w_gate, w_up, w_down, act)
+    tensors = (xs, w_up, w_down, w_gate)
+    route = _moe_pick_route(xs.dtype, d, ff, tensors, _route)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        return _MoeExperts.apply(xs, offs, w_gate, w_up, w_down, act, route,
+                                 _route)
+    return _moe_forward(xs, offs, w_gate, w_up, w_down, act, route,
+                        save=False)[0]
+
+
+def moe_experts_backward(dy: torch.Tensor, xs: torch.Tensor,
+                         offs: torch.Tensor, w_gate, w_up: torch.Tensor,
+                         w_down: torch.Tensor, act: str, saved=None, *,
+                         needs=(True, True, True, True),
+                         _route: str | None = None):
+    """The gradients of :func:`moe_experts` for ``dy`` ``[M, d]``:
+    ``(d_xs, d_w_gate, d_w_up, d_w_down)``, each None where ``needs`` (the
+    same four) says so, ``d_w_gate`` None without a gate.  Rows of
+    ``d_xs`` past ``offs[E-1]`` are zero, and so is ``dW[e]`` of an expert
+    with no rows.  ``dy`` may be strided or unaligned: it is made
+    contiguous, and the route is chosen from the real pointers.
+
+    On the card ``saved`` is ``(a, b)``, the products the forward kept
+    (``[M, ff]``, ``a`` None without a gate), and four kernels launch
+    (``csrc/moe_experts_bwd.cu``): dh (``dY w_down^T`` with the
+    activation's backward in its epilogue), dx, and dw for the gate and up
+    weights, then for the down weights; counted once in
+    ``LAUNCHES["moe_experts_backward"]`` and ``MOE_BWD_ROUTES``.  The host
+    never reads ``offs``.  On the CPU it is
+    :func:`~repro_torch.kernels.moe_experts.moe_experts_backward_plain`
+    and ``saved`` is not read."""
+    _moe_types(xs, act)
+    m, d, ff, e = _moe_shapes(xs, offs, w_gate, w_up, w_down)
+    dev = xs.device
+    if not isinstance(dy, torch.Tensor) or dy.dtype != xs.dtype:
+        raise TypeError(f"dy must be a {xs.dtype} tensor, got "
+                        f"{getattr(dy, 'dtype', type(dy))}")
+    if tuple(dy.shape) != (m, d) or dy.device != dev:
+        raise ValueError(f"dy must be [M, d] = {(m, d)} on {dev}, got "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    dy = dy.contiguous()
+    glu = w_gate is not None
+    if dev.type != "cuda":
+        grads = moe_experts_backward_plain(dy, xs, offs, w_gate, w_up,
+                                           w_down, act)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    if saved is None:
+        raise ValueError("moe_experts_backward on the card needs saved = "
+                         "(a, b), the products its forward kept")
+    a, b = saved
+    for t, name in ((a, "a"), (b, "b")):
+        if t is None and (name == "b" or glu):
+            raise ValueError(f"saved {name} is missing")
+        if t is not None:
+            _expect(t, name, xs.dtype, 2, dev)
+            if tuple(t.shape) != (m, ff):
+                raise ValueError(f"saved {name} must be [M, ff] = {(m, ff)}, "
+                                 f"got {tuple(t.shape)}")
+    d_xs = torch.zeros_like(xs) if needs[0] else None
+    d_wg = torch.empty_like(w_gate) if glu and needs[1] else None
+    d_wu = torch.empty_like(w_up) if needs[2] else None
+    d_wd = torch.empty_like(w_down) if needs[3] else None
+    route = _moe_pick_route(xs.dtype, d, ff,
+                            (xs, w_up, w_down, w_gate, dy, a, b), _route)
+    if m == 0:
+        for g in (d_wg, d_wu, d_wd):
+            if g is not None:
+                g.zero_()
+        return d_xs, d_wg, d_wu, d_wd
+    lib = load_library()
+    new = lambda: torch.empty((m, ff), dtype=xs.dtype, device=dev)  # noqa: E731
+    da, db, h = new() if glu else None, new(), new()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    dt, rid, s = _PA_DTYPES[xs.dtype], _MOE_ROUTE_IDS[route], _stream(dev)
+    with torch.cuda.device(dev):
+        _check(lib.moe_bwd_dh_launch(
+            dt, rid, dy.data_ptr(), w_down.data_ptr(), offs.data_ptr(),
+            ptr(a), b.data_ptr(), ptr(da), db.data_ptr(), h.data_ptr(),
+            m, d, ff, e, _moe_mode(act, glu), s),
+            f"moe_experts_backward (dh, {route})")
+        if d_xs is not None:
+            _check(lib.moe_bwd_dx_launch(
+                dt, rid, ptr(da), ptr(w_gate), db.data_ptr(),
+                w_up.data_ptr(), offs.data_ptr(), d_xs.data_ptr(), m, d, ff,
+                e, s), f"moe_experts_backward (dx, {route})")
+        # dW_gate and dW_up share the xs tile: one launch for the two.
+        pairs = [(g, out) for g, out in ((da, d_wg), (db, d_wu))
+                 if out is not None]
+        if pairs:
+            (g, out), (g2, out2) = pairs[0], (
+                pairs[1] if len(pairs) > 1 else (None, None))
+            _check(lib.moe_bwd_dw_launch(
+                dt, rid, xs.data_ptr(), g.data_ptr(), ptr(g2),
+                offs.data_ptr(), out.data_ptr(), ptr(out2), m, d, ff, e, s),
+                f"moe_experts_backward (dw up, {route})")
+        if d_wd is not None:
+            _check(lib.moe_bwd_dw_launch(
+                dt, rid, h.data_ptr(), dy.data_ptr(), None, offs.data_ptr(),
+                d_wd.data_ptr(), None, m, ff, d, e, s),
+                f"moe_experts_backward (dw down, {route})")
+    LAUNCHES["moe_experts_backward"] += 1
+    MOE_BWD_ROUTES[route] += 1
+    return d_xs, d_wg, d_wu, d_wd
 
 
 __all__ = [
-    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "MOE_ROUTES", "NO_MATCH",
-    "TCAM_ROUTES", "build_library",
+    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "MOE_BWD_ROUTES",
+    "MOE_ROUTES", "NO_MATCH", "TCAM_ROUTES", "build_library",
     "build_transition_table", "flash_attention", "lane_replay",
-    "lane_smem_bytes", "load_library", "moe_experts", "msi_transition",
+    "lane_smem_bytes", "load_library", "moe_experts",
+    "moe_experts_backward", "msi_transition",
     "msi_transition_vectorized", "paged_attention", "protect_check",
     "reset_launches", "translate_lookup",
 ]

@@ -5,9 +5,10 @@ Both dispatches of the reference over one routing (:func:`moe_route`):
 grouped products, unsorted) and "capacity" (each expert's first ``C`` slots
 gathered into ``[E, C, d]``, the rest dropped, then scattered back).  The
 grouped products go through :func:`repro_torch.kernels.ops.moe_experts`:
-the hand-written CUDA kernels on the card, their plain version on the CPU.
-The reference's products are ``jax.lax.ragged_dot`` and einsums (XLA), so
-no TPU kernel is replaced.
+the hand-written CUDA kernels on the card, and under autograd their
+backward kernels too; their plain version on the CPU.  The reference's
+products are ``jax.lax.ragged_dot`` and einsums (XLA), so no TPU kernel is
+replaced.
 
 On the card nothing here reads the device on the host: group sizes are
 counted with ``scatter_add_`` and stay on the device, the capacity is

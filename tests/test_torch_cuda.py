@@ -22,7 +22,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.directory_msi import msi_transition_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.lane_replay import lane_replay_plain
-from repro_torch.kernels.moe_experts import moe_experts_plain
+from repro_torch.kernels.moe_experts import (
+    moe_experts_backward_plain,
+    moe_experts_plain,
+)
 from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.kernels.range_match import (
     protect_check_plain,
@@ -956,8 +959,8 @@ def test_family_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers):
 
 
 # --------------------------------------------------------------------- #
-# Training: the train step on the card equals the CPU's; the MoE experts
-# refuse autograd on the card (no backward kernel).
+# Training: the train step on the card equals the CPU's, every family's,
+# MoE through the experts' backward kernels.
 # --------------------------------------------------------------------- #
 def _warm_opt(params, seed):
     """AdamW state at step 5 with seeded moments, so one update is smooth
@@ -973,20 +976,31 @@ def _warm_opt(params, seed):
     return opt
 
 
-@pytest.mark.parametrize("arch,layers", [("gemma-2b", None),
-                                         ("xlstm-1.3b", None),
-                                         ("zamba2-1.2b", 5),
-                                         ("musicgen-large", None),
-                                         ("llama-3.2-vision-11b", None)])
-def test_train_step_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers):
+@pytest.mark.parametrize("arch,layers,impl", [
+    pytest.param("gemma-2b", None, None, id="gemma-2b-None"),
+    pytest.param("xlstm-1.3b", None, None, id="xlstm-1.3b-None"),
+    pytest.param("zamba2-1.2b", 5, None, id="zamba2-1.2b-5"),
+    pytest.param("musicgen-large", None, None, id="musicgen-large-None"),
+    pytest.param("llama-3.2-vision-11b", None, None,
+                 id="llama-3.2-vision-11b-None"),
+    pytest.param("moonshot-v1-16b-a3b", None, "ragged",
+                 id="moonshot-v1-16b-a3b-None-ragged"),
+    pytest.param("moonshot-v1-16b-a3b", None, "capacity",
+                 id="moonshot-v1-16b-a3b-None-capacity")])
+def test_train_step_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers,
+                                       impl):
     """Reduced, fp32 (TF32 off), remat, 2 microbatches of B 2 x S 20 (the
     recurrences' chunk padded): the loss, grad norm, lr and every updated
-    param and moment at 1e-4."""
+    param and moment at 1e-4.  MoE (both dispatches) trains through the
+    experts' SIMT forward and backward kernels: one backward per layer and
+    microbatch."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = dataclasses.replace(reduced_config(get_config(arch)),
                               compute_dtype="float32")
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if impl:
+        cfg = dataclasses.replace(cfg, moe_impl=impl)
     params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     opt = _warm_opt(params, 1)
     batch = _family_batch(cfg, np.random.default_rng(4), 4, 20)
@@ -994,44 +1008,141 @@ def test_train_step_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers):
     out = {}
     for dev in ("cpu", cuda):
         m = LM(cfg, device=dev, remat=True)
+        before = dict(ops.MOE_BWD_ROUTES)
         # Copies: the step updates its params and state in place.
         p, o, met = make_train_step(m, opt_cfg, microbatches=2)(
             *adamw.tree_map(lambda t: t.to(dev, copy=True), [params, opt]),
             batch)
         out[str(dev)] = ([met["loss"], met["grad_norm"], met["lr"]]
                          + [t for t, _ in adamw.leaves({"p": p, "o": o})])
+        bwd = {k: ops.MOE_BWD_ROUTES[k] - before[k] for k in before}
+        moe_calls = cfg.num_layers * 2 if impl and dev == cuda else 0
+        assert bwd == {"wmma": 0, "simt": moe_calls}
     for c, g in zip(out["cpu"], out[str(cuda)], strict=True):
         assert g.device.type == "cuda" and g.dtype == c.dtype
         torch.testing.assert_close(g.detach().cpu(), c.detach(), rtol=1e-4,
                                    atol=1e-4)
 
 
-def test_moe_experts_refuse_autograd_on_cuda(cuda):
-    """Under autograd the card's grouped products raise (their output has
-    no grad_fn: the experts would silently get no gradient); under
-    no_grad, as serving runs, they launch as before; the CPU's plain
-    products stay differentiable."""
-    xs, offs, wg, wu, wd = _moe_case("empty-groups", torch.bfloat16, cuda,
-                                     True)
-    for needs in ([xs], [wg], [wu], [wd]):
-        args = [a.clone().requires_grad_(any(a is n for n in needs))
-                if a.is_floating_point() else a
-                for a in (xs, offs, wg, wu, wd)]
-        with pytest.raises(NotImplementedError, match="A11.1"):
-            ops.moe_experts(*args, "silu")
-        with torch.no_grad():
-            before = ops.LAUNCHES["moe_experts"]
-            ops.moe_experts(*args, "silu")
-            assert ops.LAUNCHES["moe_experts"] == before + 1
-    cpu = [a.cpu().float().requires_grad_(a.is_floating_point())
-           for a in (xs, wg, wu, wd)]
-    ops.moe_experts(cpu[0], offs.cpu(), *cpu[1:], "silu").sum().backward()
-    assert all(a.grad is not None for a in cpu)
+def _grad_close(got, want, dtype):
+    """A gradient of the experts against the plain backward's: fp32
+    elementwise at MOE_TOL; bf16/fp16 within MOE_TOL of the tensor's
+    largest element.  In 16 bits the two round dH and dA (as the forward
+    rounds its products) after sums in different orders, so one rounding
+    step of an intermediate can land on either side and move an element of
+    dW, a sum over the expert's rows that may cancel, by more than MOE_TOL
+    of itself (0.039 on 0.74 of a tensor up to ~10, one element of 786,432
+    on the SIMT route)."""
+    tol = MOE_TOL[dtype]
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    else:
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        assert err <= tol * scale, (err, scale)
 
-    cfg = dataclasses.replace(reduced_config(get_config(
-        "moonshot-v1-16b-a3b")), compute_dtype="bfloat16")
-    m = LM(cfg, device=cuda)
-    params = m.init(torch.Generator(device=cuda).manual_seed(0))
-    batch = _to(_family_batch(cfg, np.random.default_rng(5), 2, 8), cuda)
-    with pytest.raises(NotImplementedError, match="A11.1"):
-        make_train_step(m, AdamWConfig())(params, adamw.init(params), batch)
+
+def _moe_grads(args, act, dy, route=None):
+    """The gradients of ``ops.moe_experts`` at ``dy`` under autograd, two
+    backward calls on one forward: ``(out, first, second)``."""
+    ins = [a.clone().requires_grad_() for a in args if a is not None and
+           a.is_floating_point()]
+    it = iter(ins)
+    call = [next(it) if a is not None and a.is_floating_point() else a
+            for a in args]
+    out = ops.moe_experts(*call, act, _route=route)
+    first = torch.autograd.grad(out, ins, dy, retain_graph=True)
+    second = torch.autograd.grad(out, ins, dy)
+    return out, first, second
+
+
+@pytest.mark.parametrize("glu,act", [(True, "silu"), (True, "gelu"),
+                                     (False, "gelu")])
+@pytest.mark.parametrize("route,dtype", [
+    ("wmma", torch.bfloat16), ("wmma", torch.float16),
+    ("simt", torch.float32), ("simt", torch.bfloat16)])
+@pytest.mark.parametrize("name", sorted(MOE_CASES))
+def test_moe_experts_backward_routes_equal_plain(cuda, name, route, dtype,
+                                                 glu, act):
+    """Under autograd each route's backward kernels against the plain
+    backward (empty groups, one token's slots, rows past the last group,
+    whose d_xs is 0; an expert with no rows gets an exact-zero dW), with no
+    host sync; two backward calls bit-identical."""
+    args = _moe_case(name, dtype, cuda, glu)
+    dy = torch.randn(args[0].shape, generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda).to(dtype)
+    if route == "wmma" and ops._moe_route(dtype, *MOE_CASES[name][1:]) != (
+            "wmma"):
+        with pytest.raises(ValueError, match="wmma"):
+            _moe_grads(args, act, dy, route)
+        return
+    before = (dict(ops.LAUNCHES), dict(ops.MOE_BWD_ROUTES))
+    with _NoHostSync():
+        out, got, again = _moe_grads(args, act, dy, route)
+    torch.cuda.synchronize()
+    assert out.grad_fn is not None
+    assert ops.LAUNCHES["moe_experts"] == before[0]["moe_experts"] + 1
+    assert (ops.LAUNCHES["moe_experts_backward"]
+            == before[0]["moe_experts_backward"] + 2)
+    assert ops.MOE_BWD_ROUTES[route] == before[1][route] + 2
+    want = [g for g in moe_experts_backward_plain(dy, *args, act)
+            if g is not None]
+    sizes = MOE_CASES[name][0]
+    for g, g2, w in zip(got, again, want, strict=True):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, g2)
+        _grad_close(g, w, dtype)
+    assert not got[0][-2:].any()
+    for dw in got[1:]:
+        assert all(not dw[e].any() for e, n in enumerate(sizes) if n == 0)
+
+
+def test_moe_experts_backward_routes_by_real_pointers(cuda):
+    """Under no_grad the forward launches as before and keeps nothing;
+    under autograd the same launch count and a gradient; an unaligned dy
+    sends the backward to the SIMT route (a forced wmma raises)."""
+    args = _moe_case("empty-groups", torch.bfloat16, cuda, True)
+    ins = [a.clone().requires_grad_() if a.is_floating_point() else a
+           for a in args]
+    before = (dict(ops.LAUNCHES), dict(ops.MOE_ROUTES))
+    with torch.no_grad():
+        out = ops.moe_experts(*ins, "silu")
+    assert out.grad_fn is None
+    assert ops.LAUNCHES == dict(before[0], moe_experts=before[0][
+        "moe_experts"] + 1)
+    assert ops.MOE_ROUTES["wmma"] == before[1]["wmma"] + 1
+    out = ops.moe_experts(*ins, "silu")
+    m, d = args[0].shape
+    dy = torch.randn((m * d + 1,), device=cuda).to(torch.bfloat16)[1:]
+    dy = dy.view(m, d)
+    assert dy.data_ptr() % 16 and dy.is_contiguous()
+    bwd = dict(ops.MOE_BWD_ROUTES)
+    got = torch.autograd.grad(out, [ins[0]], dy, retain_graph=True)[0]
+    assert ops.MOE_BWD_ROUTES == dict(bwd, simt=bwd["simt"] + 1)
+    want = moe_experts_backward_plain(dy, *args, "silu")[0]
+    _grad_close(got, want, torch.bfloat16)
+    forced = ops.moe_experts(*ins, "silu", _route="wmma")
+    with pytest.raises(ValueError, match="wmma"):
+        torch.autograd.grad(forced, [ins[0]], dy)
+    # A strided dy is made contiguous.
+    strided = torch.empty((d, m), device=cuda, dtype=torch.bfloat16).t()
+    strided.copy_(dy)
+    got = torch.autograd.grad(out, [ins[0]], strided)[0]
+    _grad_close(got, want, torch.bfloat16)
+
+
+def test_moe_experts_backward_raises_instead_of_falling_back(cuda,
+                                                             monkeypatch):
+    class Broken:
+        def __getattr__(self, name):
+            return lambda *args: 700  # cudaErrorIllegalAddress
+
+    args = _moe_case("empty-groups", torch.bfloat16, cuda, True)
+    ins = [a.clone().requires_grad_() if a.is_floating_point() else a
+           for a in args]
+    out = ops.moe_experts(*ins, "silu")
+    monkeypatch.setattr(ops, "_lib", Broken())
+    before = (dict(ops.LAUNCHES), dict(ops.MOE_BWD_ROUTES))
+    with pytest.raises(RuntimeError, match="moe_experts_backward"):
+        out.backward(torch.ones_like(out))
+    assert (ops.LAUNCHES, ops.MOE_BWD_ROUTES) == before

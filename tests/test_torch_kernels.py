@@ -284,7 +284,7 @@ def test_wrappers_count_no_launch_on_cpu():
     assert P.LAUNCHES == {"protect_check": 0, "translate_lookup": 0,
                           "lane_replay": 0, "paged_attention": 0,
                           "msi_transition": 0, "flash_attention": 0,
-                          "moe_experts": 0}
+                          "moe_experts": 0, "moe_experts_backward": 0}
 
 
 def test_wrappers_validate_inputs():
