@@ -15,7 +15,8 @@ exits nonzero):
               lines, each lane_replay and MSI kernel's registers, static
               shared memory and spills (none allowed), and the HGMMA
               (wgmma) instructions of each kernel counted in
-              `cuobjdump -sass` of the library.
+              `cuobjdump -sass` of the library: every kernel of
+              moe_experts_sm90.cu must have some, and none may spill.
 3. serve    — PagedServer serving qwen3-4b at full width (36 layers,
               d_model 2560, bf16, random weights from a seed): 16 requests
               of 500-token prompts sharing a 256-token prefix, two of them
@@ -30,8 +31,8 @@ exits nonzero):
               of d_ff 1408, swiglu) with param_dtype bfloat16 (56.1 GB;
               the config's fp32 would be 112.2 GB) and a 1,024-page pool
               (6.44 GB): the hard checks of serve, and every MoE call on
-              the card's route for bf16 (ops.MOE_ROUTES): 48 x (prefills +
-              decode steps) moe_experts launches.  Its widest decode
+              the card's route for bf16, wgmma (ops.MOE_ROUTES): 48 x
+              (prefills + decode steps) moe_experts launches.  Its widest decode
               call (Hkv 16, G 1, D 128) and layer 0's MoE inputs are
               recorded; the traced window also gives the MoE products'
               share of device time.
@@ -40,18 +41,21 @@ exits nonzero):
               inputs (the widest decode step, the first prefill) in bf16
               (2e-2) and fp32 (1e-4), under set_sync_debug_mode("error"),
               the routing equal bytewise; then the grouped products alone
-              (ops.moe_experts) on both routes, timed cold beside their
-              plain version, their bound (the experts hit, read once; 2 x
-              slots x 3 x d x ff operations) and torch._grouped_mm.  Then
-              their backward (ops.moe_experts under autograd, the kernels
-              of csrc/moe_experts_bwd.cu) against
+              (ops.moe_experts) on every route (wgmma, the card's for
+              bf16; wmma, its yardstick; simt) at those inputs and, in
+              bf16, at train (d)'s shapes (B 4 x S 1,024 routed by layer
+              0: M 24,576), timed cold beside their plain version, their
+              bound (the experts hit, read once; 2 x slots x 3 x d x ff
+              operations) and torch._grouped_mm.  Then their backward
+              (ops.moe_experts under autograd, the kernels of
+              csrc/moe_experts_sm90.cu on wgmma) against
               moe_experts_backward_plain on layer 0 at the first prefill
-              and at train (d)'s shapes (B 4 x S 1,024 routed: M 24,576),
-              bf16 and fp32, and on grok-1-314b's gelu GLU at its widths
-              (d 6,144, ff 32,768, E 8, 512 rows, bf16): each gradient
-              within MOE_TOL of its largest element, two calls bit for
-              bit, no host sync, an exact-zero dW for an expert with no
-              rows; the call and each kernel timed cold beside the plain
+              and at train (d)'s shapes, bf16 and fp32, and on
+              grok-1-314b's gelu GLU at its widths (d 6,144, ff 32,768,
+              E 8, 512 rows, bf16): each gradient within MOE_TOL of its
+              largest element, two calls bit for bit, no host sync, an
+              exact-zero dW for an expert with no rows; the call and each
+              kernel timed cold on wgmma and on wmma beside the plain
               version, the bound (2 x 3 x 2 M d ff operations) and
               torch._grouped_mm's six products.
 4. kernels  — every kernel against its plain PyTorch version on the card,
@@ -236,6 +240,10 @@ its own, times both kernels cold on the main path's recorded calls and
 on the two 4,096-row tables, held bytewise to the plain versions; the
 order is other, this, this, other, three times over, and the medians
 come last.
+
+`python3 chip_smoke.py --moe-launches` times each launch of the MoE
+experts' forward and backward alone, warm, at train (d)'s shapes on the
+wgmma and wmma routes (moe_launch_times), and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -374,6 +382,10 @@ MESH_DRYRUN = (("gemma-2b", "train_4k", False),
 # itself: in fp32 2.0e-4 on such an element (2e-6 of the tensor), and in
 # bf16 more, as both sides round dH and dA after sums in other orders.
 MOE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# The kernels of the MoE products' wgmma route (csrc/moe_experts_sm90.cu):
+# the forward's, dh and dx's, dw's.
+MOE_WGMMA_KERNELS = ("moe_wgmma_kernel", "moe_bwd_nt_wgmma_kernel",
+                     "moe_bwd_tn_wgmma_kernel")
 # The backward's cases beyond serve_moe's recorded prefill: one
 # microbatch's MoE call at train (d)'s shapes (B 4 x S 1,024 tokens, top-6:
 # M 24,576), and grok-1-314b's gelu GLU at its widths on one layer's
@@ -409,15 +421,16 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attention.py:25"),
     # No TPU counterpart: the reference's grouped products are
     # jax.lax.ragged_dot, an XLA op.  The reported case (bf16) runs the
-    # tensor-core route; fp32 runs the SIMT one (ops._moe_route).
+    # wgmma route; fp32 runs the SIMT one in moe_experts.cu
+    # (ops._moe_route).
     "moe_experts": dict(
-        source="src/repro_torch/kernels/csrc/moe_experts.cu",
+        source="src/repro_torch/kernels/csrc/moe_experts_sm90.cu",
         replaces="none: no TPU kernel (jax.lax.ragged_dot, XLA, at "
                  "src/repro/models/moe.py:116)"),
     # Their backward (dh, dx, dw): the reference trains through XLA's
     # autodiff of ragged_dot.  Reported at train (d)'s shapes, bf16.
     "moe_experts_backward": dict(
-        source="src/repro_torch/kernels/csrc/moe_experts_bwd.cu",
+        source="src/repro_torch/kernels/csrc/moe_experts_sm90.cu",
         replaces="none: no TPU kernel (XLA's autodiff of "
                  "jax.lax.ragged_dot at src/repro/models/moe.py:116)"),
 }
@@ -561,7 +574,8 @@ def sass_hgmma(lib) -> dict:
 
 # Sources whose kernels must compile without register spills (their
 # registers and shared memory are reported in phase build).
-NO_SPILL_SOURCES = ("lane_replay", "directory_msi", "range_match")
+NO_SPILL_SOURCES = ("lane_replay", "directory_msi", "range_match",
+                    "moe_experts_sm90")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -1120,9 +1134,12 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         if moe["calls"] != moe_calls:
             raise AssertionError(f"{moe['calls']} moe_ffn calls, expected "
                                  f"{moe_calls}")
-        # Every MoE call on the card takes the route its dtype gives.
+        # Every MoE call on the card takes the route its dtype gives:
+        # wgmma in bf16.
         route = ops._moe_route(_dtype(cfg.compute_dtype), cfg.d_model,
                                cfg.moe.d_ff_expert)
+        if cfg.compute_dtype == "bfloat16" and route != "wgmma":
+            raise AssertionError(f"bf16 MoE calls route to {route}")
         if device.type == "cuda" and not (
                 launches["moe_experts"] == moe_routes[route] == moe_calls):
             raise AssertionError(f"moe_experts launched "
@@ -1159,8 +1176,10 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
     return line, widest["args"], None
 
 
-# Kernels of the two grouped MoE products, by name in a profiler trace.
-MOE_KERNEL_NAMES = ("moe_wmma_kernel", "moe_simt_kernel")
+# Kernels of the two grouped MoE products (the forward), by name in a
+# profiler trace: the wgmma route's, then the wmma and simt routes'.  The
+# backward's all carry "moe_bwd_".
+MOE_KERNEL_NAMES = ("moe_wgmma_kernel", "moe_wmma_kernel", "moe_simt_kernel")
 
 
 def device_kernels(prof):
@@ -1299,9 +1318,10 @@ def phase_moe(device, cfg, rec, scale: float = 1.0):
     and fp32 (1e-4), each call under ``set_sync_debug_mode("error")``;
     the routing of both paths equal bytewise, every call on the route its
     dtype gives.  Then the grouped products alone (``ops.moe_experts``)
-    on both routes, held to the plain version and timed cold beside it,
-    their bound and ``torch._grouped_mm``; ``moe_ffn`` itself timed cold
-    (both dispatches, bf16); and the experts' backward kernels
+    on every route the dtype allows (wgmma, wmma, simt), also at train
+    (d)'s shapes in bf16, held to the plain version and timed cold beside
+    it, their bound and ``torch._grouped_mm``; ``moe_ffn`` itself timed
+    cold (both dispatches, bf16); and the experts' backward kernels
     (``moe_backward``)."""
     import torch
 
@@ -1342,18 +1362,23 @@ def phase_moe(device, cfg, rec, scale: float = 1.0):
                     out_rms=float(want.float().square().mean().sqrt()),
                     slots=x.shape[0] * x.shape[1] * cfg.moe.top_k)
                 del got, want
-        # The grouped products alone, at the main path's shapes.
-        for name, x0 in inputs.items():
+        # The grouped products alone, at the main path's shapes, and in
+        # 16 bits at train (d)'s.
+        cases = dict(inputs)
+        if tdt != torch.float32:
+            cases["train"] = train_hidden(device, cfg, scale)
+        for name, x0 in cases.items():
             args = grouped_args(p, cfg, x0.to(tdt))
             xs, offs = args[0], args[1]
             ends = offs.long()
             counts = ends - torch.cat([ends.new_zeros(1), ends[:-1]])
             hit = int((counts > 0).sum())
             want = moe_experts_plain(*args)
+            routes = ([route, "wmma", "simt"] if route != "simt"
+                      else ["simt"])
             err = max(held(f"moe_experts ({r}, {name}, {dtype})",
                            ops.moe_experts(*args, _route=r), want, tol)
-                      for r in ([route, "simt"] if route != "simt"
-                                else ["simt"]))
+                      for r in routes)
             el = xs.element_size()
             m = xs.shape[0]
             nbytes = hit * 3 * d * ff * el + 2 * m * d * el + offs.numel() * 4
@@ -1368,10 +1393,9 @@ def phase_moe(device, cfg, rec, scale: float = 1.0):
                 bound=bound_ms(nbytes, nops, TENSOR_OPS_S
                                if tdt != torch.float32 else ALU_OPS_S),
                 library_ms=None)
-            if route != "simt":
-                row["simt_ms"] = time_ms_cold(
-                    lambda: ops.moe_experts(*args, _route="simt"), 20,
-                    device)
+            for r in routes[1:]:
+                row[f"{r}_ms"] = time_ms_cold(
+                    lambda: ops.moe_experts(*args, _route=r), 20, device)
             if device.type == "cuda" and tdt != torch.float32:
                 try:
                     lib = grouped_mm_library(*args)
@@ -1385,6 +1409,7 @@ def phase_moe(device, cfg, rec, scale: float = 1.0):
             row["share_of_bound"] = row["bound"][0] / row["ms"]
             timed[f"{name} {dtype}"] = row
             del args, want
+        del cases
         if tdt != torch.float32:
             for impl in ("ragged", "capacity"):
                 c = dataclasses.replace(cfg, moe_impl=impl,
@@ -1486,8 +1511,10 @@ def moe_backward_case(device, name, args, dtype: str, timed: bool):
     through ``ops.moe_experts`` under autograd, two backward calls under
     ``set_sync_debug_mode("error")``, bit-identical, held to
     ``moe_experts_backward_plain`` (``moe_grads_held``), experts with no
-    rows an exact-zero dW; ``timed``: the call, each kernel, the plain
-    version and ``torch._grouped_mm`` timed cold beside the bound."""
+    rows an exact-zero dW; ``timed``: the call and each kernel (on the
+    card's route, and in 16 bits on wmma, its yardstick, held too), the
+    plain version and ``torch._grouped_mm`` timed cold beside the
+    bound."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1544,6 +1571,19 @@ def moe_backward_case(device, name, args, dtype: str, timed: bool):
                         + m * d + e * mats * d * ff) + offs.numel() * 4)
         bwd = lambda: torch.autograd.grad(  # noqa: E731
             out, ins, dy, retain_graph=True)
+        if route != "simt":
+            # The wmma route's backward, on a forward of its own.
+            out_w = ops.moe_experts(*call, act, _route="wmma")
+            bwd_w = lambda: torch.autograd.grad(  # noqa: E731
+                out_w, ins, dy, retain_graph=True)
+            got_w = list(bwd_w())
+            if w_gate is None:
+                got_w.insert(1, None)
+            moe_grads_held(f"{label} wmma", got_w, want, dtype)
+            del got_w
+            row.update(wmma_ms=time_ms_cold(bwd_w, 10, device),
+                       wmma_kernels_ms=moe_bwd_kernel_ms(bwd_w, device, 5))
+            del out_w, bwd_w
         row.update(
             ms=time_ms_cold(bwd, 10, device),
             kernels_ms=moe_bwd_kernel_ms(bwd, device, 5),
@@ -1571,6 +1611,85 @@ def moe_backward_case(device, name, args, dtype: str, timed: bool):
                     lambda: grouped_mm_backward_library(*lib_args), 10,
                     device)
     return row
+
+
+def moe_launch_times(device) -> dict:
+    """Each MoE launch alone at train (d)'s shapes: M 24,576 rows routed
+    uniformly at random (from SEED) over 64 experts, d 2,048, ff 1,408,
+    bf16, silu GLU; warm (``time_ms``, 10 calls), on the wgmma and wmma
+    routes.  The forward's up launch (with and without the saved products)
+    and down launch; dh, and its product alone (dx's launcher with one
+    term); dx; dw of gate and up, and of down; and the two dw launches at
+    8 experts of 3,072 rows (48-step reductions a tile).  The launchers of
+    ``ops.load_library()`` are called directly."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    m, e, d, ff = 24576, 64, 2048, 1408
+    lib = ops.load_library()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    counts = torch.multinomial(torch.ones(e, device=device), m, True,
+                               generator=gen).bincount(minlength=e)
+    offs = counts.cumsum(0).to(torch.int32)
+    offs8 = (torch.arange(1, 9, device=device) * (m // 8)).to(torch.int32)
+    bf = torch.bfloat16
+
+    def rand(*shape, s=1.0):
+        return (torch.randn(shape, device=device, generator=gen) * s).to(bf)
+
+    xs, dy = rand(m, d), rand(m, d)
+    wg, wu = rand(e, d, ff, s=d ** -0.5), rand(e, d, ff, s=d ** -0.5)
+    wd = rand(e, ff, d, s=ff ** -0.5)
+    _, a, b = ops._moe_forward(xs, offs, wg, wu, wd, "silu", "wgmma",
+                               save=True)
+    da, db, h, o = (torch.empty((m, ff), dtype=bf, device=device)
+                    for _ in range(4))
+    dxs = torch.empty((m, d), dtype=bf, device=device)
+    dwg, dwu, dwd = (torch.empty_like(w) for w in (wg, wu, wd))
+    s = ops._stream(device)
+    P = torch.Tensor.data_ptr
+    out = {"M": m, "E": e, "d": d, "ff": ff}
+    for route in ("wgmma", "wmma"):
+        r = ops._MOE_ROUTE_IDS[route]
+        calls = {
+            "up_save": lambda: lib.moe_experts_launch(
+                1, r, P(xs), P(wg), P(wu), P(offs), P(o), P(da), P(db), m,
+                d, ff, e, 1, s),
+            "up": lambda: lib.moe_experts_launch(
+                1, r, P(xs), P(wg), P(wu), P(offs), P(o), None, None, m, d,
+                ff, e, 1, s),
+            "down": lambda: lib.moe_experts_launch(
+                1, r, P(h), P(wd), None, P(offs), P(dxs), None, None, m, ff,
+                d, e, 0, s),
+            "dh": lambda: lib.moe_bwd_dh_launch(
+                1, r, P(dy), P(wd), P(offs), P(a), P(b), P(da), P(db), P(h),
+                m, d, ff, e, 1, s),
+            "dh_product": lambda: lib.moe_bwd_dx_launch(
+                1, r, None, None, P(dy), P(wd), P(offs), P(o), m, ff, d, e,
+                s),
+            "dx": lambda: lib.moe_bwd_dx_launch(
+                1, r, P(da), P(wg), P(db), P(wu), P(offs), P(dxs), m, d, ff,
+                e, s),
+            "dw_up": lambda: lib.moe_bwd_dw_launch(
+                1, r, P(xs), P(da), P(db), P(offs), P(dwg), P(dwu), m, d,
+                ff, e, s),
+            "dw_down": lambda: lib.moe_bwd_dw_launch(
+                1, r, P(h), P(dy), None, P(offs), P(dwd), None, m, ff, d, e,
+                s),
+            "dw_up_e8": lambda: lib.moe_bwd_dw_launch(
+                1, r, P(xs), P(da), P(db), P(offs8), P(dwg), P(dwu), m, d,
+                ff, 8, s),
+            "dw_down_e8": lambda: lib.moe_bwd_dw_launch(
+                1, r, P(h), P(dy), None, P(offs8), P(dwd), None, m, ff, d, 8,
+                s)}
+        times = {}
+        for name, call in calls.items():
+            def run(call=call, name=name):
+                ops._check(call(), f"moe launch {name} ({route})")
+            times[name] = time_ms(run, 10, device)
+        out[route] = times
+    return out
 
 
 def grok_experts_args(device, scale: float = 1.0):
@@ -1607,6 +1726,19 @@ def grok_experts_args(device, scale: float = 1.0):
     return (xs, offs, w_gate, w_up, w_down, act)
 
 
+def train_hidden(device, cfg, scale: float = 1.0):
+    """Random hidden states of one train (d) microbatch (MOE_BWD_TRAIN,
+    fp32, from SEED): routed by layer 0, M 24,576 rows at full scale."""
+    import torch
+
+    mb = dict(MOE_BWD_TRAIN)
+    if scale < 1:
+        mb.update(batch=2, seq=16)
+    return torch.randn((mb["batch"], mb["seq"], cfg.d_model), device=device,
+                       generator=torch.Generator(device=device).manual_seed(
+                           SEED))
+
+
 def moe_backward(device, cfg, rec, scale: float = 1.0):
     """Phase moe, the backward: ``moe_backward_case`` on serve_moe's layer 0
     at its first prefill (bf16 and fp32, both timed) and at train (d)'s
@@ -1615,12 +1747,7 @@ def moe_backward(device, cfg, rec, scale: float = 1.0):
     timed)."""
     import torch
 
-    mb = dict(MOE_BWD_TRAIN)
-    if scale < 1:
-        mb.update(batch=2, seq=16)
-    x_train = torch.randn((mb["batch"], mb["seq"], cfg.d_model),
-                          device=device, generator=torch.Generator(
-                              device=device).manual_seed(SEED))
+    x_train = train_hidden(device, cfg, scale)
     out = {}
     for dtype in ("bfloat16", "float32"):
         tdt = getattr(torch, dtype)
@@ -2716,13 +2843,21 @@ def train_moe(device, scale: float = 1.0):
             if device.type == "cuda" else None)
     launches = ops.LAUNCHES["moe_experts_backward"]
     routes = dict(ops.MOE_BWD_ROUTES)
+    fwd_routes = dict(ops.MOE_ROUTES)
     calls = cfg.num_layers * tr["microbatches"] * tr["steps"]
     route = ops._moe_route(getattr(torch, cfg.compute_dtype), cfg.d_model,
                            cfg.moe.d_ff_expert)
-    if device.type == "cuda" and (launches != calls
-                                  or routes[route] != calls):
+    if cfg.compute_dtype == "bfloat16" and route != "wgmma":
+        raise AssertionError(f"train moe: bf16 MoE calls route to {route}")
+    # The forward runs twice a microbatch under remat: every call on the
+    # route, none elsewhere.
+    if device.type == "cuda" and (
+            launches != calls or routes[route] != calls
+            or fwd_routes[route] != ops.LAUNCHES["moe_experts"]
+            or fwd_routes[route] < calls):
         raise AssertionError(f"train moe: {launches} backward calls "
-                             f"({routes}), expected {calls} on {route}")
+                             f"({routes}), forward {fwd_routes}, expected "
+                             f"{calls} on {route}")
     losses, gnorms = out["losses"], out["grad_norms"]
     if len(losses) != tr["steps"] or not all(
             math.isfinite(x) for x in losses + gnorms):
@@ -2786,7 +2921,8 @@ def train_moe(device, scale: float = 1.0):
         model_tflops=flops / step_s / 1e12,
         model_tflops_share_of_989=flops / step_s / 989e12,
         peak_mem_gb=peak, moe_backward_launches=launches,
-        moe_backward_routes=routes, profile=window)
+        moe_backward_routes=routes, moe_forward_routes=fwd_routes,
+        profile=window)
 
 
 def phase_train(device, scale: float = 1.0):
@@ -3591,6 +3727,10 @@ def main() -> int:
         return tcam_ab(Path(sys.argv[2]).resolve())
     sys.path.insert(0, str(SRC))
     device = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--moe-launches"]:
+        emit({"nvidia_smi": nvidia_smi_line(),
+              **moe_launch_times(device)})
+        return 0
     # fp32 products stay fp32 (no TF32) in every reference comparison.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3621,6 +3761,12 @@ def main() -> int:
     if not any("flash_sm90_kernel" in k for k in hgmma):
         raise AssertionError(f"no HGMMA in the tensor-core flash kernel: "
                              f"{hgmma}")
+    # Every kernel of the MoE wgmma route, each of its three names.
+    wgmma_moe = list(resources["moe_experts_sm90"])
+    if not all(any(nm in k for k in wgmma_moe) for nm in MOE_WGMMA_KERNELS) \
+            or not all(hgmma.get(k) for k in wgmma_moe):
+        raise AssertionError(f"a MoE wgmma kernel has no HGMMA: "
+                             f"{wgmma_moe}, {hgmma}")
     emit({"phase": "build", "seconds": build_s,
           "library": str(lib.relative_to(ROOT)), "ptxas": logs,
           "resources": resources, "hgmma": hgmma})
@@ -3651,18 +3797,20 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in moe["products"].values()),
         tolerance=dict(MOE_TOL), ms=prod["ms"], plain_ms=prod["plain_ms"],
         bound=prod["bound"], library_ms=prod["library_ms"],
+        wmma_ms=prod["wmma_ms"],
         shape={k: prod[k] for k in ("M", "d", "ff", "E", "experts_hit",
                                     "route")},
-        ptxas=resources["moe_experts"])
+        ptxas=resources["moe_experts_sm90"])
     bwd = moe["backward"]["train bfloat16"]
     kern["moe_experts_backward"] = dict(
         max_abs_err=max(r["max_abs_err"] for r in moe["backward"].values()),
         tolerance=dict(MOE_TOL), ms=bwd["ms"], plain_ms=bwd["plain_ms"],
         bound=bwd["bound"], library_ms=bwd["library_ms"],
-        kernels_ms=bwd["kernels_ms"],
+        kernels_ms=bwd["kernels_ms"], wmma_ms=bwd["wmma_ms"],
+        wmma_kernels_ms=bwd["wmma_kernels_ms"],
         shape={k: bwd[k] for k in ("M", "d", "ff", "E", "experts_hit",
                                    "route")},
-        ptxas=resources["moe_experts_bwd"])
+        ptxas=resources["moe_experts_sm90"])
     emit({"phase": "kernels", **kern})
     free_device(device)
     ops.reset_launches()
@@ -3744,8 +3892,10 @@ def main() -> int:
                           **{key: k[key] for key in ("serial_steps",
                                                      "ns_per_step")
                              if key in k},
-                          **({key: k[key] for key in ("kernels_ms", "ptxas")}
-                             if kname == "moe_experts_backward" else {})))
+                          **{key: k[key] for key in ("kernels_ms",
+                                                     "wmma_kernels_ms",
+                                                     "wmma_ms", "ptxas")
+                             if key in k and kname in NO_TPU_KERNEL}))
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -33,12 +33,14 @@
 // tile and neighbouring row tiles run side by side, so an expert's weight
 // tile is read from device memory once and from L2 by its other row tiles.
 //   route "wmma" (bf16/fp16; K and N multiples of 8, 16-byte aligned
-//   tensors): 4 warps, each 32x32 of the 64x64 tile in 16x16x16
+//   tensors; reached only when forced, as the yardstick of "wgmma"): 4 warps, each 32x32 of the 64x64 tile in 16x16x16
 //   tensor-core fragments with fp32 accumulators; tiles of depth 32 of A
 //   and B (and B2) double-buffered in shared memory by 16-byte cp.async;
 //   the accumulators go through shared memory for the epilogue.
 //   route "simt" (any float type and shape; fp32 always): 256 threads, 4x4
 //   outputs each, fp32 FMAs over tiles of depth 16 staged in shared memory.
+//   route "wgmma" (the card's for bf16/fp16): moe_experts_sm90.cu's TMA +
+//   wgmma mainloop, called by the launcher below.
 //
 // Plain C interface, bound with ctypes: the launcher returns the CUDA error
 // code of its launch (0 on success) and never synchronises.
@@ -50,19 +52,6 @@
 namespace {
 
 using namespace nvcuda;
-
-// Modes: 1 silu GLU, 2 gelu GLU, 3 silu, 4 gelu, 0 the product alone.
-constexpr int kPlain = 0;
-
-// The output element from the fp32 sums of the first (a) and gate (b)
-// products.
-template <typename T>
-__device__ __forceinline__ float epilogue(int mode, float a, float b) {
-  if (mode == kPlain) return a;
-  const float x = rnd<T>(a);
-  const float act = rnd<T>((mode == 1 || mode == 3) ? silu(x) : gelu_tanh(x));
-  return mode <= 2 ? act * rnd<T>(b) : act;
-}
 
 // The output element at i, and (when the backward needs them) the two
 // products rounded to T: save gets the first, save2 the gate's.
@@ -298,7 +287,8 @@ int launch(int route, const void* a, const void* b, const void* b2, const void* 
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16; route: 0 wmma, 1 simt; b2 null for the
+// dtype: 0 fp32, 1 bf16, 2 fp16; route: 0 wmma, 1 simt, 2 wgmma
+// (moe_experts_sm90.cu; bf16 and fp16); b2 null for the
 // one-matrix modes.  save and save2, each [M, N] or null, get the two
 // products rounded to the element type (the backward's saved tensors; null
 // under no_grad); save2 only in the GLU modes.
@@ -306,11 +296,13 @@ extern "C" int moe_experts_launch(int dtype, int route, const void* a, const voi
                                   const void* b2, const void* offs, void* out, void* save,
                                   void* save2, int M, int K, int N, int E, int mode,
                                   void* stream) {
-  if (M <= 0 || N <= 0 || E <= 0 || K <= 0 || mode < 0 || mode > 4 || route < 0 || route > 1)
+  if (M <= 0 || N <= 0 || E <= 0 || K <= 0 || mode < 0 || mode > 4 || route < 0 || route > 2)
     return cudaErrorInvalidValue;
   if ((mode == 1 || mode == 2) != (b2 != nullptr)) return cudaErrorInvalidValue;
   if (save2 != nullptr && b2 == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2)
+    return moe_sm90_forward(dtype, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
   switch (dtype) {
     case 0: return launch<float>(route, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
     case 1: return launch<__nv_bfloat16>(route, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);

@@ -47,11 +47,14 @@
 //   16-byte cp.async copies; a tile of X staged [row][k] is read by WMMA's
 //   col_major matrix_a fragment as X^T.
 //   route "wmma" (bf16/fp16; d and ff multiples of 8, 16-byte aligned
-//   tensors): 4 warps, each 32x32 of a 64x64 tile in 16x16x16 fragments
-//   with fp32 accumulators, tiles double-buffered by 16-byte cp.async, the
+//   tensors; reached only when forced, as the yardstick of "wgmma"): 4
+//   warps, each 32x32 of a 64x64 tile in 16x16x16 fragments with fp32
+//   accumulators, tiles double-buffered by 16-byte cp.async, the
 //   accumulators through shared memory for the epilogue.  route "simt"
 //   (any float type and shape; fp32 always): 256 threads, 4x4 outputs
-//   each, fp32 FMAs over tiles staged in shared memory.
+//   each, fp32 FMAs over tiles staged in shared memory.  route "wgmma"
+//   (the card's for bf16/fp16): moe_experts_sm90.cu's TMA + wgmma
+//   mainloop, called by the launchers below.
 //
 // Plain C interface, bound with ctypes: each launcher returns the CUDA
 // error code of its launch (0 on success) and never synchronises.
@@ -90,19 +93,12 @@ __device__ __forceinline__ void nt_epilogue(const NtArgs<T>& p, size_t i, float 
     p.out[i] = from_f<T>(acc);
     return;
   }
-  const float dh = rnd<T>(acc);
-  const bool is_silu = p.mode == 1 || p.mode == 3;
-  if (p.mode <= 2) {
-    const float a = to_f(p.pa[i]), b = to_f(p.pb[i]);
-    const float act = rnd<T>(is_silu ? silu(a) : gelu_tanh(a));
-    p.h[i] = from_f<T>(act * b);
-    p.da[i] = from_f<T>(dh * b * (is_silu ? silu_grad(a) : gelu_tanh_grad(a)));
-    p.db[i] = from_f<T>(dh * act);
-  } else {
-    const float b = to_f(p.pb[i]);
-    p.h[i] = from_f<T>(rnd<T>(is_silu ? silu(b) : gelu_tanh(b)));
-    p.db[i] = from_f<T>(dh * (is_silu ? silu_grad(b) : gelu_tanh_grad(b)));
-  }
+  const bool glu = p.mode <= 2;
+  float da, db, h;
+  glu_backward<T>(p.mode, acc, glu ? to_f(p.pa[i]) : 0.f, to_f(p.pb[i]), &da, &db, &h);
+  if (glu) p.da[i] = from_f<T>(da);
+  p.db[i] = from_f<T>(db);
+  p.h[i] = from_f<T>(h);
 }
 
 template <typename T>
@@ -266,13 +262,6 @@ struct TnArgs {
   T* out2;
   int M, K, N, E;
 };
-
-// Expert e's rows [lo, hi), clamped as find_tile clamps them.
-__device__ __forceinline__ void expert_rows(const int* __restrict__ offs, int e, int M, int* lo,
-                                            int* hi) {
-  *lo = min(max(e ? offs[e - 1] : 0, 0), M);
-  *hi = min(max(offs[e], *lo), M);
-}
 
 constexpr int kLdT = kBN + 8;  // 16-bit elements of a staged row: 64 + 8
 
@@ -478,7 +467,7 @@ int launch_tn(int route, const TnArgs<T>& p, cudaStream_t stream) {
 }
 
 bool bad_common(int route, int M, int d, int ff, int E) {
-  return M <= 0 || d <= 0 || ff <= 0 || E <= 0 || E > 65535 || route < 0 || route > 1;
+  return M <= 0 || d <= 0 || ff <= 0 || E <= 0 || E > 65535 || route < 0 || route > 2;
 }
 
 template <typename T>
@@ -542,7 +531,8 @@ int dw(int route, const void* x, const void* g, const void* g2, const void* offs
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16; route: 0 wmma, 1 simt.
+// dtype: 0 fp32, 1 bf16, 2 fp16; route: 0 wmma, 1 simt, 2 wgmma
+// (moe_experts_sm90.cu; bf16 and fp16).
 
 // dH = dY w_down[e]^T with the activation's backward in the epilogue:
 // mode 1 silu GLU, 2 gelu GLU (pa = a, pb = b; writes da, db, h), 3 silu,
@@ -554,6 +544,9 @@ extern "C" int moe_bwd_dh_launch(int dtype, int route, const void* dy, const voi
   if (bad_common(route, M, d, ff, E) || mode < 1 || mode > 4) return cudaErrorInvalidValue;
   if ((mode <= 2) != (pa != nullptr && da != nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2)
+    return moe_sm90_nt(dtype, dy, w_down, nullptr, nullptr, offs, M, d, ff, E, mode, nullptr, pa,
+                       pb, da, db, h, s);
   switch (dtype) {
     case 0: return dh<float>(route, dy, w_down, offs, pa, pb, da, db, h, M, d, ff, E, mode, s);
     case 1:
@@ -570,6 +563,12 @@ extern "C" int moe_bwd_dx_launch(int dtype, int route, const void* da, const voi
   if (bad_common(route, M, d, ff, E) || (da == nullptr) != (w_gate == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+    const bool glu = da != nullptr;
+    return moe_sm90_nt(dtype, glu ? da : db, glu ? w_gate : w_up, glu ? db : nullptr,
+                       glu ? w_up : nullptr, offs, M, ff, d, E, 0, out, nullptr, nullptr,
+                       nullptr, nullptr, nullptr, s);
+  }
   switch (dtype) {
     case 0: return dx<float>(route, da, w_gate, db, w_up, offs, out, M, d, ff, E, s);
     case 1: return dx<__nv_bfloat16>(route, da, w_gate, db, w_up, offs, out, M, d, ff, E, s);
@@ -586,6 +585,7 @@ extern "C" int moe_bwd_dw_launch(int dtype, int route, const void* x, const void
   if (bad_common(route, M, K, N, E) || (g2 == nullptr) != (out2 == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2) return moe_sm90_tn(dtype, x, g, g2, offs, out, out2, M, K, N, E, s);
   switch (dtype) {
     case 0: return dw<float>(route, x, g, g2, offs, out, out2, M, K, N, E, s);
     case 1: return dw<__nv_bfloat16>(route, x, g, g2, offs, out, out2, M, K, N, E, s);

@@ -76,8 +76,8 @@ LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
 FLASH_ROUTES = {"wgmma": 0, "simt": 0}
 LANE_ROUTES = {"smem": 0, "global": 0}
 TCAM_ROUTES = {"staged": 0, "tiled": 0}
-MOE_ROUTES = {"wmma": 0, "simt": 0}
-MOE_BWD_ROUTES = {"wmma": 0, "simt": 0}
+MOE_ROUTES = {"wgmma": 0, "wmma": 0, "simt": 0}
+MOE_BWD_ROUTES = {"wgmma": 0, "wmma": 0, "simt": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -757,18 +757,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # --------------------------------------------------------------------- #
 # The MoE experts' grouped products.
 # --------------------------------------------------------------------- #
-_MOE_ROUTE_IDS = {"wmma": 0, "simt": 1}
+_MOE_ROUTE_IDS = {"wmma": 0, "simt": 1, "wgmma": 2}
+# The tensor-core routes: "wgmma" (csrc/moe_experts_sm90.cu, TMA + wgmma)
+# and the older "wmma" (cp.async + wmma fragments), kept as the in-run
+# yardstick of the first and reached only by ``_route=``.  Both take the
+# same calls.
+_MOE_TC_ROUTES = ("wgmma", "wmma")
 
 
 def _moe_route(dtype: torch.dtype, d: int, ff: int,
                aligned: bool = True) -> str:
-    """Which kernel computes ``moe_experts`` on the card: ``"wmma"``
-    (tensor cores) for bf16/fp16 when ``d`` and ``ff`` are multiples of 8
-    and every tensor is 16-byte aligned (its 16-byte copies' rule), else
-    ``"simt"`` (fp32 FMAs; fp32 always takes it)."""
+    """Which kernel computes ``moe_experts`` on the card: ``"wgmma"``
+    (tensor cores, TMA copies) for bf16/fp16 when ``d`` and ``ff`` are
+    multiples of 8 and every tensor is 16-byte aligned (what TMA takes: a
+    16-byte aligned base and row strides of whole 16 bytes; ragged tails
+    past a tile come in as its zeros), else ``"simt"`` (fp32 FMAs; fp32
+    always takes it)."""
     if (dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
             and ff % 8 == 0 and aligned):
-        return "wmma"
+        return "wgmma"
     return "simt"
 
 
@@ -780,15 +787,15 @@ def _moe_mode(act: str, glu: bool) -> int:
 
 def _moe_pick_route(dtype, d: int, ff: int, tensors, forced) -> str:
     """The route of one call: ``forced`` (``_route=``) or the best the
-    tensors' real pointers allow; a forced ``"wmma"`` they do not allow
-    raises."""
+    tensors' real pointers allow; a forced tensor-core route (``"wgmma"``
+    or ``"wmma"``) they do not allow raises."""
     best = _moe_route(dtype, d, ff, all(
         t.data_ptr() % 16 == 0 for t in tensors if t is not None))
     route = forced or best
     if route not in _MOE_ROUTE_IDS:
         raise ValueError(f"unknown moe_experts route {route!r}")
-    if route == "wmma" and best != "wmma":
-        raise ValueError(f"the wmma route needs bf16/fp16, d and ff "
+    if route in _MOE_TC_ROUTES and best not in _MOE_TC_ROUTES:
+        raise ValueError(f"the {route} route needs bf16/fp16, d and ff "
                          f"multiples of 8 and 16-byte aligned tensors "
                          f"({dtype}, d {d}, ff {ff})")
     return route
@@ -904,7 +911,8 @@ def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
     :func:`moe_experts_backward`; under ``no_grad`` the two launches are
     all.  On the CPU it is the plain version under plain autograd.
     ``_route`` forces a route, forward and backward (tests and
-    ``chip_smoke.py``; a forced ``"wmma"`` the shapes do not allow raises).
+    ``chip_smoke.py``; a forced ``"wgmma"`` or ``"wmma"`` the shapes do not
+    allow raises).
     On ``meta`` (the dry run) it is
     :func:`~repro_torch.kernels.moe_experts.moe_experts_meta`: the shape,
     ``xs`` ``[M, d]`` or ``[G, M, d]``, and the work of the rows."""
@@ -940,7 +948,8 @@ def moe_experts_backward(dy: torch.Tensor, xs: torch.Tensor,
 
     On the card ``saved`` is ``(a, b)``, the products the forward kept
     (``[M, ff]``, ``a`` None without a gate), and four kernels launch
-    (``csrc/moe_experts_bwd.cu``): dh (``dY w_down^T`` with the
+    (``csrc/moe_experts_sm90.cu`` on the ``"wgmma"`` route,
+    ``csrc/moe_experts_bwd.cu`` on the others): dh (``dY w_down^T`` with the
     activation's backward in its epilogue), dx, and dw for the gate and up
     weights, then for the down weights; counted once in
     ``LAUNCHES["moe_experts_backward"]`` and ``MOE_BWD_ROUTES``.  The host

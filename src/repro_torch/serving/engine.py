@@ -10,7 +10,8 @@ PyTorch version on the CPU.
 
 Supports the dense and MoE families (per-layer KV; an MoE layer's FFN is
 ``repro_torch.models.moe.moe_ffn``, whose grouped products are the
-hand-written kernels of ``kernels/csrc/moe_experts.cu`` on the card).
+hand-written kernels of ``kernels/csrc/moe_experts_sm90.cu`` on the card
+in bf16/fp16, ``kernels/csrc/moe_experts.cu`` in fp32).
 Scheduler: admit-until-full continuous batching with page-granular
 allocation, exactly as the reference schedules.  The engine runs on CUDA
 unless the caller passes ``device="cpu"``.

@@ -757,6 +757,12 @@ MOE_CASES = {
     "prefill": ([40, 0, 37, 91, 12, 0, 64, 65, 1, 30, 0, 55, 8, 77, 20, 100],
                 256, 192),
     "odd-widths": ([3, 0, 9], 20, 36),  # the SIMT route alone
+    # Groups straddling the wgmma route's 64- and 128-row tiles (its rule:
+    # 64 below 32 rows an expert on average), N and K not multiples of its
+    # 128-column tile or 64-deep step.
+    "straddle-128": ([1, 63, 64, 65, 127, 129, 0], 72, 200),
+    "straddle-64": ([1, 63, 0, 0, 64, 65, 0, 0, 127, 0, 129, 0, 0, 0, 0],
+                    72, 200),
 }
 MOE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 1e-2}
 
@@ -773,20 +779,25 @@ def _moe_case(name, dtype, device, glu):
     return xs, offs, wg if glu else None, wu, wd
 
 
+MOE_ROUTE_CASES = [
+    ("wgmma", torch.bfloat16), ("wgmma", torch.float16),
+    ("wmma", torch.bfloat16), ("wmma", torch.float16),
+    ("simt", torch.float32), ("simt", torch.bfloat16)]
+
+
 @pytest.mark.parametrize("glu,act", [(True, "silu"), (True, "gelu"),
                                      (False, "gelu")])
-@pytest.mark.parametrize("route,dtype", [
-    ("wmma", torch.bfloat16), ("wmma", torch.float16),
-    ("simt", torch.float32), ("simt", torch.bfloat16)])
+@pytest.mark.parametrize("route,dtype", MOE_ROUTE_CASES)
 @pytest.mark.parametrize("name", sorted(MOE_CASES))
 def test_moe_experts_routes_equal_plain(cuda, name, route, dtype, glu, act):
     """Each route against the plain version, with empty groups, one
-    token's slots (B 1), rows past the last group (zeros), and no host
-    sync inside the call."""
+    token's slots (B 1), groups straddling row tiles, rows past the last
+    group (zeros), no host sync inside the call, and two calls bit for
+    bit."""
     args = _moe_case(name, dtype, cuda, glu)
-    if route == "wmma" and ops._moe_route(dtype, *MOE_CASES[name][1:]) != (
-            "wmma"):
-        with pytest.raises(ValueError, match="wmma"):
+    if route in ("wgmma", "wmma") and ops._moe_route(
+            dtype, *MOE_CASES[name][1:]) != "wgmma":
+        with pytest.raises(ValueError, match=route):
             ops.moe_experts(*args, act, _route=route)
         return
     before = (ops.LAUNCHES["moe_experts"], dict(ops.MOE_ROUTES))
@@ -798,6 +809,7 @@ def test_moe_experts_routes_equal_plain(cuda, name, route, dtype, glu, act):
     want = moe_experts_plain(*args, act)
     assert got.dtype == dtype and got.shape == want.shape
     assert not got[-2:].any()
+    assert torch.equal(got, ops.moe_experts(*args, act, _route=route))
     tol = MOE_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -813,7 +825,8 @@ def _moe_cfg(impl, dtype):
 
 
 @pytest.mark.parametrize("shape", [(3, 1), (1, 1), (2, 9)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("impl", ["ragged", "capacity"])
 def test_moe_ffn_takes_a_card_route_without_host_sync(cuda, impl, dtype,
                                                       shape, monkeypatch):
@@ -828,6 +841,7 @@ def test_moe_ffn_takes_a_card_route_without_host_sync(cuda, impl, dtype,
         got, aux = M.moe_ffn(p, cfg, x)
         route = M.moe_route(p, cfg, x)
     route_name = ops._moe_route(dtype, cfg.d_model, cfg.moe.d_ff_expert)
+    assert route_name == ("simt" if dtype == torch.float32 else "wgmma")
     assert ops.MOE_ROUTES[route_name] == before[route_name] + 1
     want, want_aux = M.moe_ffn(p, cfg, x, _experts=moe_experts_plain)
     for a, b in zip(route, M.moe_route(p, cfg, x)):
@@ -837,14 +851,18 @@ def test_moe_ffn_takes_a_card_route_without_host_sync(cuda, impl, dtype,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_moe_ffn_is_captured_by_a_cuda_graph(cuda):
-    """No host read of the group sizes: a decode-sized call replays from a
-    CUDA graph and gives the eager call's output."""
-    cfg = _moe_cfg("ragged", "bfloat16")
-    p = {k: v.to(torch.bfloat16) for k, v in M.moe_params(
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_moe_ffn_is_captured_by_a_cuda_graph(cuda, dtype):
+    """No host read of the group sizes: a decode-sized call (on the wgmma
+    route: its tensor maps encoded on the host from pointers and shapes
+    alone) replays from a CUDA graph and gives the eager call's output."""
+    cfg = _moe_cfg("ragged", str(dtype).split(".")[1])
+    p = {k: v.to(dtype) for k, v in M.moe_params(
         torch.Generator(device=cuda).manual_seed(0), cfg).items()}
-    x = torch.randn((8, 1, cfg.d_model), device=cuda).to(torch.bfloat16)
+    x = torch.randn((8, 1, cfg.d_model), device=cuda).to(dtype)
+    before = dict(ops.MOE_ROUTES)
     eager, _ = M.moe_ffn(p, cfg, x)
+    assert ops.MOE_ROUTES["wgmma"] == before["wgmma"] + 1
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -860,14 +878,15 @@ def test_moe_experts_raise_instead_of_falling_back(cuda, monkeypatch):
             return 700  # cudaErrorIllegalAddress
 
     args = _moe_case("empty-groups", torch.bfloat16, cuda, True)
-    with pytest.raises(ValueError, match="wmma"):  # fp32 has no wmma route
-        ops.moe_experts(*(a.float() if a.dtype == torch.bfloat16 else a
-                          for a in args), "silu", _route="wmma")
+    for route in ("wgmma", "wmma"):  # fp32 has no tensor-core route
+        with pytest.raises(ValueError, match=route):
+            ops.moe_experts(*(a.float() if a.dtype == torch.bfloat16 else a
+                              for a in args), "silu", _route=route)
     with pytest.raises(ValueError):  # offs left on the CPU
         ops.moe_experts(args[0], args[1].cpu(), *args[2:], "silu")
     monkeypatch.setattr(ops, "_lib", Broken())
     before = (dict(ops.LAUNCHES), dict(ops.MOE_ROUTES))
-    for route in ("wmma", "simt", None):
+    for route in ("wgmma", "wmma", "simt", None):
         with pytest.raises(RuntimeError, match="moe_experts"):
             ops.moe_experts(*args, "silu", _route=route)
     assert (ops.LAUNCHES, ops.MOE_ROUTES) == before
@@ -899,8 +918,8 @@ def test_moe_server_on_cuda_equals_cpu(cuda, monkeypatch):
                          routes)
     (cs, ctok, cr), (gs, gtok, gr) = out["cpu"], out[str(cuda)]
     assert gs == cs and gtok == ctok
-    assert cr == {"wmma": 0, "simt": 0}
-    assert gr == {"wmma": 0,
+    assert cr == {"wgmma": 0, "wmma": 0, "simt": 0}
+    assert gr == {"wgmma": 0, "wmma": 0,
                   "simt": cfg.num_layers * (len(tails) + gs["steps"])}
 
 
@@ -1017,7 +1036,7 @@ def test_train_step_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers,
                          + [t for t, _ in adamw.leaves({"p": p, "o": o})])
         bwd = {k: ops.MOE_BWD_ROUTES[k] - before[k] for k in before}
         moe_calls = cfg.num_layers * 2 if impl and dev == cuda else 0
-        assert bwd == {"wmma": 0, "simt": moe_calls}
+        assert bwd == {"wgmma": 0, "wmma": 0, "simt": moe_calls}
     for c, g in zip(out["cpu"], out[str(cuda)], strict=True):
         assert g.device.type == "cuda" and g.dtype == c.dtype
         torch.testing.assert_close(g.detach().cpu(), c.detach(), rtol=1e-4,
@@ -1058,9 +1077,7 @@ def _moe_grads(args, act, dy, route=None):
 
 @pytest.mark.parametrize("glu,act", [(True, "silu"), (True, "gelu"),
                                      (False, "gelu")])
-@pytest.mark.parametrize("route,dtype", [
-    ("wmma", torch.bfloat16), ("wmma", torch.float16),
-    ("simt", torch.float32), ("simt", torch.bfloat16)])
+@pytest.mark.parametrize("route,dtype", MOE_ROUTE_CASES)
 @pytest.mark.parametrize("name", sorted(MOE_CASES))
 def test_moe_experts_backward_routes_equal_plain(cuda, name, route, dtype,
                                                  glu, act):
@@ -1071,9 +1088,9 @@ def test_moe_experts_backward_routes_equal_plain(cuda, name, route, dtype,
     args = _moe_case(name, dtype, cuda, glu)
     dy = torch.randn(args[0].shape, generator=torch.Generator(
         device=cuda).manual_seed(7), device=cuda).to(dtype)
-    if route == "wmma" and ops._moe_route(dtype, *MOE_CASES[name][1:]) != (
-            "wmma"):
-        with pytest.raises(ValueError, match="wmma"):
+    if route in ("wgmma", "wmma") and ops._moe_route(
+            dtype, *MOE_CASES[name][1:]) != "wgmma":
+        with pytest.raises(ValueError, match=route):
             _moe_grads(args, act, dy, route)
         return
     before = (dict(ops.LAUNCHES), dict(ops.MOE_BWD_ROUTES))
@@ -1100,7 +1117,8 @@ def test_moe_experts_backward_routes_equal_plain(cuda, name, route, dtype,
 def test_moe_experts_backward_routes_by_real_pointers(cuda):
     """Under no_grad the forward launches as before and keeps nothing;
     under autograd the same launch count and a gradient; an unaligned dy
-    sends the backward to the SIMT route (a forced wmma raises)."""
+    sends the backward to the SIMT route (a forced wgmma or wmma
+    raises)."""
     args = _moe_case("empty-groups", torch.bfloat16, cuda, True)
     ins = [a.clone().requires_grad_() if a.is_floating_point() else a
            for a in args]
@@ -1110,7 +1128,7 @@ def test_moe_experts_backward_routes_by_real_pointers(cuda):
     assert out.grad_fn is None
     assert ops.LAUNCHES == dict(before[0], moe_experts=before[0][
         "moe_experts"] + 1)
-    assert ops.MOE_ROUTES["wmma"] == before[1]["wmma"] + 1
+    assert ops.MOE_ROUTES["wgmma"] == before[1]["wgmma"] + 1
     out = ops.moe_experts(*ins, "silu")
     m, d = args[0].shape
     dy = torch.randn((m * d + 1,), device=cuda).to(torch.bfloat16)[1:]
@@ -1121,9 +1139,10 @@ def test_moe_experts_backward_routes_by_real_pointers(cuda):
     assert ops.MOE_BWD_ROUTES == dict(bwd, simt=bwd["simt"] + 1)
     want = moe_experts_backward_plain(dy, *args, "silu")[0]
     _grad_close(got, want, torch.bfloat16)
-    forced = ops.moe_experts(*ins, "silu", _route="wmma")
-    with pytest.raises(ValueError, match="wmma"):
-        torch.autograd.grad(forced, [ins[0]], dy)
+    for route in ("wgmma", "wmma"):
+        forced = ops.moe_experts(*ins, "silu", _route=route)
+        with pytest.raises(ValueError, match=route):
+            torch.autograd.grad(forced, [ins[0]], dy)
     # A strided dy is made contiguous.
     strided = torch.empty((d, m), device=cuda, dtype=torch.bfloat16).t()
     strided.copy_(dy)
@@ -1140,9 +1159,11 @@ def test_moe_experts_backward_raises_instead_of_falling_back(cuda,
     args = _moe_case("empty-groups", torch.bfloat16, cuda, True)
     ins = [a.clone().requires_grad_() if a.is_floating_point() else a
            for a in args]
-    out = ops.moe_experts(*ins, "silu")
+    outs = {route: ops.moe_experts(*ins, "silu", _route=route)
+            for route in (None, "wgmma", "wmma", "simt")}
     monkeypatch.setattr(ops, "_lib", Broken())
     before = (dict(ops.LAUNCHES), dict(ops.MOE_BWD_ROUTES))
-    with pytest.raises(RuntimeError, match="moe_experts_backward"):
-        out.backward(torch.ones_like(out))
+    for out in outs.values():
+        with pytest.raises(RuntimeError, match="moe_experts_backward"):
+            out.backward(torch.ones_like(out))
     assert (ops.LAUNCHES, ops.MOE_BWD_ROUTES) == before

@@ -230,8 +230,8 @@ def test_moe_experts_wrapper_checks_and_routes():
         ops.moe_experts(xs, offs[:2], w, w, wd, "silu")
     with pytest.raises(ValueError):
         ops.moe_experts(xs, offs, w, w, wd, "relu")
-    assert ops._moe_route(torch.bfloat16, 2048, 1408) == "wmma"
-    assert ops._moe_route(torch.float16, 128, 64) == "wmma"
+    assert ops._moe_route(torch.bfloat16, 2048, 1408) == "wgmma"
+    assert ops._moe_route(torch.float16, 128, 64) == "wgmma"
     assert ops._moe_route(torch.float32, 2048, 1408) == "simt"
     assert ops._moe_route(torch.bfloat16, 20, 1408) == "simt"
     assert ops._moe_route(torch.bfloat16, 2048, 1404) == "simt"
