@@ -145,8 +145,8 @@ from repro_torch.telemetry import events as tev
 _KINDS = ("I->S", "I->M", "S->S", "S->M", "M->M", "M->S")
 
 #: The frozen ``phase_times`` key schema.  Every run() populates exactly
-#: these keys; benchmarks/dataplane_bench.py and docs/BENCHMARKS.md key
-#: off this tuple, so additions/renames happen here and nowhere else.
+#: these keys; bench/metrics/replay.host_s_per_Macc.py sums them, so
+#: additions/renames happen here and nowhere else.
 PHASES = (
     "arena_setup", "state_build", "stage12_tcam", "residency_prepass",
     "cache_prepass", "schedule", "device", "merge_writeback",
@@ -167,7 +167,7 @@ class BatchedDataPlane:
     """Batched replay engine bound to one DisaggregatedRack."""
 
     def __init__(self, rack, chunk_size: int = 65536,
-                 lanes: int | None = None, device=None):
+                 lanes: int | None = None, device=None, spans=None):
         self.device = resolve_device(
             device, "the batched engine",
             cpu_hint="engine_options={'device': 'cpu'}")
@@ -219,6 +219,16 @@ class BatchedDataPlane:
         # reconstructed host-side from the packed kernel outputs and the
         # pre-pass decisions, with explicit trace indices.
         self._tel = None
+        # The host-clock span recorder (telemetry/spans.py), or None.
+        # With one, run() is a span `engine.run` whose top-level spans
+        # tile it: every phase tick, each `chunk` (a _process_chunk
+        # call, the phases it ticks inside it), and the stretches
+        # between them (`access_setup`, `chunk_plan`, `crossing_search`,
+        # `deferred_commit`, `epoch_control`, the snapshot's
+        # `speculation_overhead`, `result_build`).  A discarded
+        # speculative chunk's spans are renamed `discarded.<name>` under
+        # one `speculation_overhead` span, as phase_times moves them.
+        self.spans = spans
 
     # ------------------------------------------------------------------ #
     def run(self, trace, max_accesses: int | None = None):
@@ -227,7 +237,10 @@ class BatchedDataPlane:
         rack = self.rack
         self.phase_times = {k: 0.0 for k in PHASES}
         pt = self.phase_times
+        sp = self.spans
         t0 = time.perf_counter()
+        if sp is not None:
+            sp.begin("engine.run", t0)
         # Arena mapping happens with the directory hooks attached (as in
         # the scalar engine), so mmap-time install/evict events match;
         # everything after reconstructs events host-side instead.
@@ -394,12 +407,16 @@ class BatchedDataPlane:
             m = keep[lo:hi]
             if not m.any():
                 return np.zeros(0, np.int64), np.zeros(0, np.float64)
+            if sp is not None:
+                sp.begin("chunk")
             charged = self._process_chunk(
                 vaddrs[lo:hi][m], dense[lo:hi][m], blades[lo:hi][m],
                 writes[lo:hi][m], threads[lo:hi][m], cross_acc[lo:hi][m],
                 kvec, pso, clocks, breakdown, trans_lat, inflight,
                 gidx=lo + np.flatnonzero(m))
             note_avg(charged)
+            if sp is not None:
+                sp.end()
             return np.flatnonzero(m), charged
 
         def span_defer(lo, hi):
@@ -407,11 +424,15 @@ class BatchedDataPlane:
             if not m.any():
                 return (np.zeros(0, np.int64), np.zeros(0, np.float64),
                         lambda: None)
+            if sp is not None:
+                sp.begin("chunk")
             res = self._process_chunk(
                 vaddrs[lo:hi][m], dense[lo:hi][m], blades[lo:hi][m],
                 writes[lo:hi][m], threads[lo:hi][m], cross_acc[lo:hi][m],
                 kvec, pso, clocks, breakdown, trans_lat, inflight,
                 defer=True, gidx=lo + np.flatnonzero(m))
+            if sp is not None:
+                sp.end()
             if res is None:
                 return None
             charged, commit = res
@@ -428,6 +449,8 @@ class BatchedDataPlane:
         rb_on = self._sharded and rack.cp.block_accesses is not None
         rb_counted = 0
         smap_ver = self._smap.version if self._smap is not None else 0
+        if sp is not None:
+            sp.lap("access_setup")
         lo = 0
         while lo < n:
             full = min(self.chunk_size, n - lo)
@@ -452,6 +475,8 @@ class BatchedDataPlane:
                 full = min(full, sched[0].index - lo)
             safe = (self._next_chunk_size(clocks, next_epoch_at, inflight)
                     if rack.epoch_driver_enabled else full)
+            if sp is not None:
+                sp.lap("chunk_plan")
             if safe >= full:
                 span(lo, lo + full)
                 hi = lo + full
@@ -475,16 +500,23 @@ class BatchedDataPlane:
                 spec = min(full, max(int(0.95 * est), 64))
                 ts = time.perf_counter()
                 pt_before = dict(pt)
+                if sp is not None:
+                    sp.count("spec_chunks")
+                    mark = sp.mark()
 
-                def discard_phases():
+                def discard_phases(replayed):
                     # A discarded speculative replay is pure speculation
                     # overhead: undo its per-phase attribution so the
                     # phases trajectory reports the waste where it
                     # belongs.
-                    waste = time.perf_counter() - ts
+                    t = time.perf_counter()
                     for k, v in pt_before.items():
                         pt[k] = v
-                    pt["speculation_overhead"] += waste
+                    pt["speculation_overhead"] += t - ts
+                    if sp is not None:
+                        sp.discard(mark, "speculation_overhead", ts, t)
+                        sp.count("spec_discards")
+                        sp.count("accesses_discarded", replayed)
 
                 res = (span_defer(lo, lo + spec)
                        if self._cache_shadows is None else None)
@@ -495,12 +527,16 @@ class BatchedDataPlane:
                     cross = self._exact_crossing(
                         clocks, threads[lo:lo + spec], kept, charged,
                         next_epoch_at)
+                    if sp is not None:
+                        sp.lap("crossing_search")
                     if cross is None or cross == spec - 1:
                         commit()
                         note_avg(charged)
+                        if sp is not None:
+                            sp.lap("deferred_commit")
                         hi = lo + spec
                     else:
-                        discard_phases()
+                        discard_phases(len(kept))
                         if self._tel is not None:
                             # Discarded commit closure: no events were
                             # emitted, only the rollback itself is noted.
@@ -515,17 +551,22 @@ class BatchedDataPlane:
                     t1 = time.perf_counter()
                     snap = self._snapshot(clocks, inflight, breakdown,
                                           trans_lat)
-                    pt["speculation_overhead"] += time.perf_counter() - t1
+                    t2 = time.perf_counter()
+                    pt["speculation_overhead"] += t2 - t1
+                    if sp is not None:
+                        sp.add("speculation_overhead", t1, t2)
                     kept, charged = span(lo, lo + spec)
                     cross = self._exact_crossing(
                         snap["clocks"], threads[lo:lo + spec], kept, charged,
                         next_epoch_at)
+                    if sp is not None:
+                        sp.lap("crossing_search")
                     if cross is None or cross == spec - 1:
                         hi = lo + spec
                     else:
                         self._rollback(snap, clocks, inflight, breakdown,
                                        trans_lat)
-                        discard_phases()
+                        discard_phases(len(kept))
                         if self._tel is not None:
                             # After the rollback, so the marker survives
                             # the event-ring truncation it triggered.
@@ -586,7 +627,11 @@ class BatchedDataPlane:
                     nk = np.flatnonzero(keep[hi:])
                     if len(nk):
                         self._drain_pending_host(state, hi + int(nk[0]))
-                pt["epoch_control"] += time.perf_counter() - ts
+                t = time.perf_counter()
+                pt["epoch_control"] += t - ts
+                if sp is not None:
+                    sp.add("epoch_control", ts, t)
+                    sp.count("epochs")
             lo = hi
 
         mmu.network._inflight = {
@@ -596,6 +641,9 @@ class BatchedDataPlane:
         trans_lat = {
             k: np.concatenate(v).tolist() for k, v in trans_lat.items()
         }
+        if sp is not None:
+            sp.lap("result_build")
+            sp.end()
         return EmulationResult(
             system=rack.system,
             workload=trace.name,
@@ -625,6 +673,8 @@ class BatchedDataPlane:
     def _tick(self, key: str, t0: float) -> float:
         t1 = time.perf_counter()
         self.phase_times[key] = self.phase_times.get(key, 0.0) + (t1 - t0)
+        if self.spans is not None:
+            self.spans.add(key, t0, t1)
         return t1
 
     # ------------------------------------------------------------------ #
@@ -1401,6 +1451,7 @@ class BatchedDataPlane:
         pm = state.page_map
         bk = len(vaddr)
         maxe = d.resources.max_directory_entries
+        sp = self.spans
 
         # ---- residency: installs and capacity evictions ----------------
         t0 = time.perf_counter()
@@ -1492,6 +1543,9 @@ class BatchedDataPlane:
             row_of = self._row_of
             rows = np.fromiter((row_of[k] for k in keys_acc), np.int64, bk)
             self._rt = None
+        if sp is not None:
+            sp.count("chunks")
+            sp.count("accesses_replayed", bk)
         t0 = self._tick("residency_prepass", t0)
 
         # ---- packet stream: accesses + injected eviction packets -------
@@ -1530,6 +1584,8 @@ class BatchedDataPlane:
             np.uint32).view(np.int32)
 
         # ---- cache-occupancy pre-pass: blade-cache eviction packets ----
+        if sp is not None:
+            sp.lap("packet_stream")  # the stream and region masks above
         t0 = time.perf_counter()
         host_clears: list = []
         if self._cache_shadows is not None:
@@ -1693,13 +1749,22 @@ class BatchedDataPlane:
             planes[:, :, :words] = state.planes[None]
             t0 = self._tick("schedule", t0)
 
-            out = K.lane_replay(*lane_inputs_to_device(
+            if sp is not None:
+                sp.begin("device.upload")
+            args = lane_inputs_to_device(
                 sched.num_waves, self._dkc, acc_slot, acc_blade, acc_write,
                 acc_valid, acc_type, acc_w0, acc_rw, acc_bit, dirrows,
-                cm_dev, planes, self.device))
+                cm_dev, planes, self.device)
+            if sp is not None:
+                sp.begin("device.launch", sp.end())
+            out = K.lane_replay(*args)
+            if sp is not None:
+                sp.begin("device.download", sp.end())
             # The copies back synchronize with the device: they come
             # before the tick, so the "device" phase holds the kernel.
             (dir_o, planes_o, w1_o, w2_o, w3_o) = map(_host, out)
+            if sp is not None:
+                sp.end()
             t0 = self._tick("device", t0)
 
             # ---- unpack this shard's per-packet output words ----------
@@ -1919,6 +1984,8 @@ class BatchedDataPlane:
                 commit_latency()
             return charged, commit
         commit_latency()
+        if sp is not None:
+            sp.lap("commit")
         return charged
 
     # ------------------------------------------------------------------ #

@@ -19,6 +19,14 @@ port's copy of ``repro.core``, unchanged; each coherence access goes
 through the scalar MMU (``mmu.handle``).  Token writes and the
 copy-on-write page copy are in-place slice assignments into the pools
 (the JAX version rebuilt the arrays).
+
+With a :class:`~repro_torch.telemetry.spans.SpanRecorder` (``spans=``),
+each call is a host-clock span: ``pool.alloc`` (children ``pool.mmap``,
+the control plane's ``sys_mmap``, and ``pool.coherence``, a prefix hit's
+directory read), ``pool.free`` (child ``pool.munmap``), ``pool.write``
+(children ``pool.coherence``, the directory write, and ``pool.cow_copy``,
+with the copy's own ``pool.alloc`` and ``pool.free``), ``pool.read`` and
+``pool.tokens``.
 """
 
 from __future__ import annotations
@@ -54,8 +62,9 @@ class PagedKVPool:
     def __init__(self, num_layers: int, num_pages: int, page_tokens: int,
                  num_kv_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.bfloat16, num_replicas: int = 1,
-                 mind_kw: dict | None = None, device=None):
+                 mind_kw: dict | None = None, device=None, spans=None):
         device = resolve_device(device, "PagedKVPool")
+        self.spans = spans
         self.shape = (num_layers, num_pages, page_tokens, num_kv_heads,
                       head_dim)
         self.page_tokens = page_tokens
@@ -85,38 +94,62 @@ class PagedKVPool:
                    prefix_key: tuple | None = None) -> int:
         """Allocate one physical page for `session` (PDID).  If prefix_key
         matches an existing shared page, return it (shared, S-state)."""
+        sp = self.spans
+        if sp is not None:
+            i = sp.begin("pool.alloc")
         if prefix_key is not None and prefix_key in self._prefix_index:
             pid = self._prefix_index[prefix_key]
             ref = self._pages[pid]
             ref.refcount += 1
             self.stats["prefix_hits"] += 1
             # Reading replica joins the sharer set through the directory.
+            if sp is not None:
+                sp.begin("pool.coherence")
             self.mmu.handle(MemAccess(replica, session, ref.vaddr,
                                       AccessType.READ))
+            if sp is not None:
+                sp.end(i)
             return pid
         if not self._free:
+            if sp is not None:
+                sp.end(i)
             raise MemoryError("KV pool exhausted")
         pid = self._free.pop()
+        if sp is not None:
+            sp.begin("pool.mmap")
         vma = self.cp.sys_mmap(session, PAGE_SIZE, Perm.RW,
                                requesting_blade=replica).vma
+        if sp is not None:
+            sp.end()
         self._pages[pid] = PageRef(pid, vma.base, 1, prefix_key)
         if prefix_key is not None:
             self._prefix_index[prefix_key] = pid
         self.stats["alloc"] += 1
+        if sp is not None:
+            sp.end(i)
         return pid
 
     def free_page(self, pid: int, session: int) -> None:
         ref = self._pages.get(pid)
         if ref is None:
             return
+        sp = self.spans
+        if sp is not None:
+            i = sp.begin("pool.free")
         ref.refcount -= 1
         if ref.refcount <= 0:
             if ref.prefix_key is not None:
                 self._prefix_index.pop(ref.prefix_key, None)
+            if sp is not None:
+                sp.begin("pool.munmap")
             self.cp.sys_munmap(session, ref.vaddr)
+            if sp is not None:
+                sp.end()
             del self._pages[pid]
             self._free.append(pid)
             self.stats["free"] += 1
+        if sp is not None:
+            sp.end(i)
 
     # ------------------------------------------------------------------ #
     # Write access: coherence + copy-on-write for shared pages.
@@ -132,8 +165,14 @@ class PagedKVPool:
         refcount holder — copies, so future prompts sharing the prefix
         never observe appended tokens."""
         ref = self._pages[pid]
+        sp = self.spans
+        if sp is not None:
+            i = sp.begin("pool.write")
+            sp.begin("pool.coherence")
         res = self.mmu.handle(MemAccess(replica, session, ref.vaddr,
                                         AccessType.WRITE))
+        if sp is not None:
+            sp.end()
         if res.acts.needed_invalidation:
             self.stats["invalidations"] += 1
         indexed = (ref.prefix_key is not None
@@ -143,17 +182,28 @@ class PagedKVPool:
             # other sharers keep the original (their directory entry was
             # just invalidated for this region, so they re-fetch on next
             # access — the paper's S->M flow).
+            if sp is not None:
+                sp.begin("pool.cow_copy")
             new_pid = self.alloc_page(session, replica, prefix_key=None)
             self.k_pool[:, new_pid] = self.k_pool[:, pid]
             self.v_pool[:, new_pid] = self.v_pool[:, pid]
             self.stats["cow"] += 1
             self.free_page(pid, session)  # drop the writer's reference
+            if sp is not None:
+                sp.end(i)
             return new_pid
+        if sp is not None:
+            sp.end(i)
         return pid
 
     def read_access(self, pid: int, session: int, replica: int = 0) -> None:
         ref = self._pages[pid]
+        sp = self.spans
+        if sp is not None:
+            sp.begin("pool.read")
         self.mmu.handle(MemAccess(replica, session, ref.vaddr, AccessType.READ))
+        if sp is not None:
+            sp.end()
 
     # ------------------------------------------------------------------ #
     # Data plane: token writes into pages.
@@ -165,8 +215,13 @@ class PagedKVPool:
         if offset + t > self.page_tokens:
             raise ValueError(f"{t} tokens at offset {offset} overflow a "
                              f"{self.page_tokens}-token page")
+        sp = self.spans
+        if sp is not None:
+            sp.begin("pool.tokens")
         self.k_pool[:, pid, offset:offset + t] = k
         self.v_pool[:, pid, offset:offset + t] = v
+        if sp is not None:
+            sp.end()
 
     @property
     def pages_in_use(self) -> int:

@@ -132,7 +132,9 @@ def test_every_port_module_is_copied_trimmed_or_ported():
               "launch/mesh.py", "launch/dryrun.py",
               "distributed/sharding.py",
               # hlo_analysis.py's counterpart, under its own name.
-              "distributed/cost_analysis.py"}
+              "distributed/cost_analysis.py",
+              # The port's own: host-clock spans of its program.
+              "telemetry/spans.py"}
     have = {str(p.relative_to(ROOT / "repro_torch"))
             for p in (ROOT / "repro_torch").rglob("*.py")}
     assert have == set(COPIES) | set(TRIMMED) | ported
