@@ -1067,12 +1067,16 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
 
     srv._prefill = timed_prefill
     # Record the layer-0 call of the widest decode step (largest block
-    # table; the last of equals, so the longest sequences) for phase 4.
+    # table; the last of equals that runs eager, so on the card the step
+    # that captured the widest key's graph: a replay calls no Python, and
+    # a capture runs nothing) for phase 4.
     widest = {"key": -1, "args": None, "calls": 0}
     inner_pa = ops.paged_attention
+    capturing = (torch.cuda.is_current_stream_capturing
+                 if device.type == "cuda" else lambda: False)
 
     def recorder(q, kp, vp, bt, sl, **kw):
-        if (widest["calls"] % cfg.num_layers == 0
+        if (widest["calls"] % cfg.num_layers == 0 and not capturing()
                 and bt.numel() >= widest["key"]):
             widest["key"] = bt.numel()
             widest["args"] = tuple(a.clone() for a in (q, kp, vp, bt, sl))
@@ -1085,7 +1089,7 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
     inner_moe = M.moe_ffn
 
     def moe_recorder(p, c, x, **kw):
-        if moe["calls"] % cfg.num_layers == 0:
+        if moe["calls"] % cfg.num_layers == 0 and not capturing():
             moe["params"] = p
             if x.shape[1] > 1:
                 if moe["prefill"] is None:
@@ -1131,9 +1135,14 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
                              f"layers")
     moe_calls = cfg.num_layers * (prefill["calls"] + steps)
     if cfg.moe is not None:
-        if moe["calls"] != moe_calls:
+        # Python calls: every prefill and eager step, and a capture's
+        # eager step and capture; a replay makes none.
+        g = srv.graph_stats
+        py_calls = cfg.num_layers * (prefill["calls"] + g["eager"]
+                                     + 2 * g["captures"])
+        if moe["calls"] != py_calls:
             raise AssertionError(f"{moe['calls']} moe_ffn calls, expected "
-                                 f"{moe_calls}")
+                                 f"{py_calls} ({g})")
         # Every MoE call on the card takes the route its dtype gives:
         # wgmma in bf16.
         route = ops._moe_route(_dtype(cfg.compute_dtype), cfg.d_model,

@@ -20,6 +20,9 @@ the ``flash_attention`` launches by route (:func:`_flash_route`),
 (:func:`_tcam_route`), ``MOE_ROUTES`` the ``moe_experts`` calls
 (:func:`_moe_route`; up, then down, counted once) and ``MOE_BWD_ROUTES``
 the ``moe_experts_backward`` calls (its four launches counted once).
+``COUNTS`` holds every tally.  A call captured into a CUDA graph launches
+nothing while it is captured; whoever replays the graph adds the tallies
+its capture made (``PagedServer``'s decode step does).
 
 The kernels are built from ``csrc/*.cu`` (and the ``csrc/*.cuh`` they
 include) with ``nvcc`` for ``sm_90a`` at
@@ -78,14 +81,15 @@ LANE_ROUTES = {"smem": 0, "global": 0}
 TCAM_ROUTES = {"staged": 0, "tiled": 0}
 MOE_ROUTES = {"wgmma": 0, "wmma": 0, "simt": 0}
 MOE_BWD_ROUTES = {"wgmma": 0, "wmma": 0, "simt": 0}
+COUNTS = (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES, MOE_ROUTES,
+          MOE_BWD_ROUTES)  # every tally above
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES,
-                   MOE_ROUTES, MOE_BWD_ROUTES):
+    for counts in COUNTS:
         for k in counts:
             counts[k] = 0
 

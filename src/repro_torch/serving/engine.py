@@ -16,16 +16,33 @@ Scheduler: admit-until-full continuous batching with page-granular
 allocation, exactly as the reference schedules.  The engine runs on CUDA
 unless the caller passes ``device="cpu"``.
 
+On a CUDA device the decode step replays a CUDA graph: ``_decode_fn``
+keeps one graph of the eager step ``_decode_step`` per (batch, padded
+block-table width), all in one memory pool, captured at the key's first
+call (which runs the eager step first, for its result and to warm the
+libraries) and replayed after its inputs are copied into the graph's
+static buffers.  The replay runs the eager step's kernels on the same
+shapes, so its logits are the eager step's bit for bit.  The step runs
+eager on the CPU and whenever the call's params or pool tensors are not
+the server's own (the graph holds their addresses).  ``graph_stats``
+counts ``captures``, ``replays`` and ``eager`` steps; a replay adds to
+``ops``' tallies (``LAUNCHES``, ``MOE_ROUTES``, ...) the calls its
+capture made, so they keep counting the kernel calls that ran.
+
 With a :class:`~repro_torch.telemetry.spans.SpanRecorder` (``spans=``,
 handed on to the pool) every ``step()`` is a host-clock span ``step``
 whose children are ``admit`` (one ``prefill`` per request, carrying its
 id, with ``prefill.model``, ``prefill.pages`` and ``prefill.first_token``),
 ``page_room``, ``batch_build``, ``decode.dispatch`` (the ``_decode_fn``
-call: ``decode.embed``, per layer ``decode.attn`` with ``decode.paged``
-around the paged kernel and ``decode.ffn``, then ``decode.head``),
+call, holding ``decode.replay`` — the copies into the graph's inputs and
+the replay — or ``decode.capture``, or on the eager path
+``decode.embed``, per layer ``decode.attn`` with ``decode.paged`` around
+the paged kernel and ``decode.ffn``, then ``decode.head``),
 ``decode.sync`` (the host's read of the argmax) and ``retire``; and each
-request carries its :class:`~repro_torch.telemetry.spans.Stamps`.  On
-the card the decode spans time the host's enqueue, not the kernels.
+request carries its :class:`~repro_torch.telemetry.spans.Stamps`.  The
+counters ``decode.graph_capture``, ``decode.graph_replay`` and
+``decode.eager`` count the steps by path.  On the card the decode spans
+time the host's enqueue, not the kernels.
 """
 
 from __future__ import annotations
@@ -43,6 +60,19 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.model import LM
 from repro_torch.telemetry.spans import Stamps, clock
+
+
+@dataclass
+class _Graph:
+    """One captured decode step: its static inputs and logits, and the
+    ``ops`` tallies (``(counts, key, n)``) that its capture made."""
+
+    graph: torch.cuda.CUDAGraph
+    tokens: torch.Tensor
+    lengths: torch.Tensor
+    tables: torch.Tensor
+    logits: torch.Tensor
+    tallies: list
 
 
 @dataclass
@@ -96,6 +126,9 @@ class PagedServer:
         self.active: list[Request] = []
         self.finished: list[Request] = []
         self._next_rid = 0
+        self._graphs: dict[tuple[int, int], _Graph] = {}  # by (b, maxp)
+        self._graph_pool = None  # one memory pool for every graph
+        self.graph_stats = {"captures": 0, "replays": 0, "eager": 0}
 
     def set_spans(self, spans) -> None:
         """Attach a span recorder (or ``None``) to the server and its
@@ -172,10 +205,71 @@ class PagedServer:
                    block_tables):
         """Logits ``[B, V]`` of one decode step.  The new token's K/V are
         written into ``k_pool`` / ``v_pool`` in place; both are returned,
-        as the reference returns its updated pools."""
+        as the reference returns its updated pools.  On the graph path
+        (see the module's docstring) the logits are the graph's static
+        output, overwritten by the next call."""
+        sp = self.spans
+        pool = self.pool
+        if (self.device.type != "cuda" or params is not self.params
+                or k_pool is not pool.k_pool or v_pool is not pool.v_pool):
+            self.graph_stats["eager"] += 1
+            if sp is not None:
+                sp.count("decode.eager")
+            return self._decode_step(params, k_pool, v_pool, tokens,
+                                     lengths, block_tables, sp)
+        if sp is not None:
+            t0 = clock()
+        key = (tokens.shape[0], block_tables.shape[1])
+        g = self._graphs.get(key)
+        if g is None:
+            out = self._decode_step(params, k_pool, v_pool, tokens, lengths,
+                                    block_tables)
+            self._graphs[key] = self._capture(tokens, lengths, block_tables)
+            self.graph_stats["captures"] += 1
+            if sp is not None:
+                sp.add("decode.capture", t0, clock())
+                sp.count("decode.graph_capture")
+            return out
+        g.tokens.copy_(tokens)
+        g.lengths.copy_(lengths)
+        g.tables.copy_(block_tables)
+        g.graph.replay()
+        for counts, key, n in g.tallies:
+            counts[key] += n
+        self.graph_stats["replays"] += 1
+        if sp is not None:
+            sp.add("decode.replay", t0, clock())
+            sp.count("decode.graph_replay")
+        return g.logits, k_pool, v_pool
+
+    def _capture(self, tokens, lengths, block_tables) -> _Graph:
+        """The eager step on the server's params and pool, captured for
+        the call's shapes into a new graph.  The capture launches
+        nothing, so the tallies it made are taken back and kept for the
+        replays."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        static = [t.clone() for t in (tokens, lengths, block_tables)]
+        before = [dict(c) for c in K.COUNTS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            logits, _, _ = self._decode_step(self.params, self.pool.k_pool,
+                                             self.pool.v_pool, *static)
+        tallies = []
+        for counts, was in zip(K.COUNTS, before):
+            for key, n in was.items():
+                if counts[key] != n:
+                    tallies.append((counts, key, counts[key] - n))
+                    counts[key] = n
+        return _Graph(graph, *static, logits, tallies)
+
+    @torch.no_grad()
+    def _decode_step(self, params, k_pool, v_pool, tokens, lengths,
+                     block_tables, sp=None):
+        """The eager decode step (``_decode_fn``'s contract), recording
+        its embedding, layer and head spans in ``sp`` when given."""
         cfg = self.cfg
         model = self.model
-        sp = self.spans
         if sp is not None:
             marks = [clock()]
         params = model._cast(params)

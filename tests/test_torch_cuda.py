@@ -517,11 +517,129 @@ def test_paged_server_on_cuda_equals_cpu(cuda, monkeypatch):
         stats = srv.run_until_done()
         launches = ops.LAUNCHES["paged_attention"] - before
         out[str(dev)] = (stats, {r.rid: r.generated for r in srv.finished},
-                         launches)
-    (cs, ctok, cl), (gs, gtok, gl) = out["cpu"], out[str(cuda)]
+                         launches, srv.graph_stats)
+    (cs, ctok, cl, cg), (gs, gtok, gl, gg) = out["cpu"], out[str(cuda)]
     assert gs == cs and gtok == ctok
     assert cs["cow"] >= 1 and cs["prefix_hits"] > 0
+    # Every layer of every step ran the paged kernel: the card's steps
+    # are captures (an eager step, then a capture that launches nothing)
+    # and replays, each adding the calls its graph holds.
     assert cl == 0 and gl == gs["steps"] * cfg.num_layers
+    assert cg == {"captures": 0, "replays": 0, "eager": cs["steps"]}
+    assert gg["eager"] == 0 and gg["replays"] > 0
+    assert gg["captures"] + gg["replays"] == gs["steps"]
+
+
+def _served(cfg, params, dev, prompts, max_new, **kw):
+    """A server on ``dev`` with every prompt submitted."""
+    srv = PagedServer(LM(cfg, device=dev), _to(params, dev), device=dev,
+                      **kw)
+    for p, n in zip(prompts, max_new):
+        srv.submit(p, max_new_tokens=n)
+    return srv
+
+
+def _qwen(dtype):
+    cfg = dataclasses.replace(reduced_config(get_config("qwen3-4b")),
+                              compute_dtype=dtype, num_kv_heads=2)
+    return cfg, LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_graph_equals_the_eager_step_bit_for_bit(cuda, monkeypatch,
+                                                        dtype):
+    """Every step of a served trace through the graph path (captures,
+    then replays on new tokens, lengths and tables) against the eager
+    step on copies of the same pool: the same logits and the same pool,
+    bit for bit."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _qwen(dtype)
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, cfg.vocab_size, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+               for n in (5, 5, 3, 9, 14)]
+    srv = _served(cfg, params, cuda, prompts, (6, 9, 4, 7, 12), max_batch=3,
+                  page_tokens=8, num_pages=64)
+    inner = srv._decode_fn
+    replayed = []
+
+    def checked(params, kp, vp, tokens, lengths, bt):
+        k0, v0 = kp.clone(), vp.clone()
+        n = srv.graph_stats["replays"]
+        logits, kp, vp = inner(params, kp, vp, tokens, lengths, bt)
+        got = logits.clone()
+        want, k1, v1 = srv._decode_step(params, k0, v0, tokens, lengths, bt)
+        assert got.dtype == want.dtype == torch.float32
+        assert torch.equal(got, want)
+        assert torch.equal(kp, k1) and torch.equal(vp, v1)
+        replayed.append(srv.graph_stats["replays"] > n)
+        return logits, kp, vp
+
+    srv._decode_fn = checked
+    stats = srv.run_until_done()
+    del srv._decode_fn
+    assert len(replayed) == stats["steps"]
+    assert sum(replayed) == srv.graph_stats["replays"] >= 3
+    assert srv.graph_stats["captures"] == stats["steps"] - sum(replayed)
+
+
+def test_decode_graphs_are_keyed_by_batch_and_table_width(cuda, monkeypatch):
+    """A trace whose batch shrinks and whose tables widen past 8 pages:
+    one capture per (batch, width) key and a replay at every other step,
+    the CPU's tokens and pool stats; a call with another params dict or
+    another pool runs eager and captures nothing."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _qwen("float32")
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab_size, 12)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)])
+               for n in (14, 14, 9, 16, 10)]
+    max_new = (8, 14, 4, 12, 18)
+    out = {}
+    for dev in ("cpu", cuda):
+        srv = _served(cfg, params, dev, prompts, max_new, max_batch=3,
+                      page_tokens=4, num_pages=128)
+        keys = []
+        inner = srv._decode_fn
+
+        def keyed(params, kp, vp, tokens, lengths, bt):
+            keys.append((tokens.shape[0], bt.shape[1]))
+            return inner(params, kp, vp, tokens, lengths, bt)
+
+        srv._decode_fn = keyed
+        before = ops.LAUNCHES["paged_attention"]
+        stats = srv.run_until_done()
+        launches = ops.LAUNCHES["paged_attention"] - before
+        del srv._decode_fn
+        out[str(dev)] = (stats, {r.rid: r.generated for r in srv.finished})
+    (cs, ctok), (gs, gtok) = out["cpu"], out[str(cuda)]
+    assert gs == cs and gtok == ctok
+    assert len(keys) == gs["steps"]
+    assert {w for _, w in keys} == {8, 16}  # the tables widen
+    assert len({b for b, _ in keys}) >= 3  # the batch shrinks
+    g = srv.graph_stats
+    assert g == {"captures": len(set(keys)),
+                 "replays": len(keys) - len(set(keys)), "eager": 0}
+    assert launches == gs["steps"] * cfg.num_layers
+    assert sorted(srv._graphs) == sorted(set(keys))
+
+    # Fallbacks, at a key no graph has: another params dict (the same
+    # tensors), then the server's params on copies of the pool.
+    b, w = 2, 24
+    args = (torch.zeros(b, dtype=torch.int32, device=cuda),
+            torch.arange(b, dtype=torch.int32, device=cuda),
+            torch.zeros((b, w), dtype=torch.int32, device=cuda))
+    pool = srv.pool
+    want, _, _ = srv._decode_step(srv.params, pool.k_pool.clone(),
+                                  pool.v_pool.clone(), *args)
+    got, kp, _ = srv._decode_fn(dict(srv.params), pool.k_pool,
+                                pool.v_pool, *args)
+    assert kp is pool.k_pool and torch.equal(got, want)
+    got, _, _ = srv._decode_fn(srv.params, pool.k_pool.clone(),
+                               pool.v_pool.clone(), *args)
+    assert torch.equal(got, want)
+    assert srv.graph_stats == {**g, "eager": 2}
+    assert sorted(srv._graphs) == sorted(set(keys))
 
 
 # --------------------------------------------------------------------- #
@@ -915,12 +1033,16 @@ def test_moe_server_on_cuda_equals_cpu(cuda, monkeypatch):
         stats = srv.run_until_done()
         routes = {k: ops.MOE_ROUTES[k] - before[k] for k in before}
         out[str(dev)] = (stats, {r.rid: r.generated for r in srv.finished},
-                         routes)
-    (cs, ctok, cr), (gs, gtok, gr) = out["cpu"], out[str(cuda)]
+                         routes, srv.graph_stats)
+    (cs, ctok, cr, _), (gs, gtok, gr, gg) = out["cpu"], out[str(cuda)]
     assert gs == cs and gtok == ctok
     assert cr == {"wgmma": 0, "wmma": 0, "simt": 0}
+    # Every layer of every prefill and decode step ran the MoE kernels,
+    # the decode steps' through their graphs' replays.
     assert gr == {"wgmma": 0, "wmma": 0,
                   "simt": cfg.num_layers * (len(tails) + gs["steps"])}
+    assert gg["eager"] == 0 and gg["replays"] > 0
+    assert gg["captures"] + gg["replays"] == gs["steps"]
 
 
 # --------------------------------------------------------------------- #

@@ -7,7 +7,12 @@ the spans named after each ``PHASES`` key summing to ``phase_times``,
 ``engine.run`` tiled by its top-level spans, the access counters
 adding up), and to ``PagedServer`` on the tiny model (tokens and pool
 counts identical on and off, a stamp for every token, the decode spans
-inside ``decode.dispatch``, one ``pool.alloc`` a page asked for).
+inside ``decode.dispatch``, one ``pool.alloc`` a page asked for); on the
+card, the decode step's graph spans and counters.  The JAX package and
+the parity helpers are imported where they are used, so that the
+CUDA-marked test runs where only torch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_spans.py
 """
 
 import dataclasses
@@ -17,8 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import traces as JT
-
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.emulator import DisaggregatedRack, ShardedRack
 from repro_torch.dataplane.engine import PHASES
@@ -27,8 +30,21 @@ from repro_torch.serving import engine as serving
 from repro_torch.serving.engine import PagedServer
 from repro_torch.telemetry.spans import SpanRecorder
 
-from test_torch_dataplane import to_port, uniform_trace, zipf_trace
-from test_torch_serving import _prompts
+
+def _dp():
+    """The replay parity helpers (they import the JAX package)."""
+    import test_torch_dataplane
+    return test_torch_dataplane
+
+
+def _jt():
+    from repro.core import traces
+    return traces
+
+
+def _prompts(vocab):
+    from test_torch_serving import _prompts
+    return _prompts(vocab)
 
 
 def _total(rec, name):
@@ -182,23 +198,26 @@ def test_spans_are_not_walked_by_the_cycle_collector():
 # The replay engine.
 # --------------------------------------------------------------------- #
 REGIMES = {
-    "plain": (zipf_trace, dict(splitting_enabled=False)),
-    "uniform": (uniform_trace, dict(splitting_enabled=False)),
-    "epochs": (lambda: JT.ycsb_trace("zipf", num_threads=4, read_ratio=0.5,
-                                     accesses_per_thread=600, store_mb=4,
-                                     seed=7), dict(epoch_us=4000.0)),
+    "plain": (lambda: _dp().zipf_trace(), dict(splitting_enabled=False)),
+    "uniform": (lambda: _dp().uniform_trace(),
+                dict(splitting_enabled=False)),
+    "epochs": (lambda: _jt().ycsb_trace("zipf", num_threads=4,
+                                        read_ratio=0.5,
+                                        accesses_per_thread=600, store_mb=4,
+                                        seed=7), dict(epoch_us=4000.0)),
     # Blade-cache shadows armed: speculation under a snapshot, rollback.
-    "epochs_cache": (lambda: JT.ycsb_trace("zipf", num_threads=4,
-                                           read_ratio=0.5,
-                                           accesses_per_thread=600,
-                                           store_mb=4, seed=7),
+    "epochs_cache": (lambda: _jt().ycsb_trace("zipf", num_threads=4,
+                                              read_ratio=0.5,
+                                              accesses_per_thread=600,
+                                              store_mb=4, seed=7),
                      dict(epoch_us=4000.0, cache_bytes_per_blade=1 << 15)),
-    "capacity": (lambda: JT.WORKLOADS["TF"](num_threads=4,
-                                            accesses_per_thread=250),
+    "capacity": (lambda: _jt().WORKLOADS["TF"](num_threads=4,
+                                               accesses_per_thread=250),
                  dict(splitting_enabled=False, max_directory_entries=600)),
-    "small_chunks": (zipf_trace, dict(splitting_enabled=False)),
-    "two_shards": (lambda: JT.WORKLOADS["XS"](num_threads=4,
-                                              accesses_per_thread=250),
+    "small_chunks": (lambda: _dp().zipf_trace(),
+                     dict(splitting_enabled=False)),
+    "two_shards": (lambda: _jt().WORKLOADS["XS"](num_threads=4,
+                                                 accesses_per_thread=250),
                    dict(splitting_enabled=False, num_shards=2)),
 }
 
@@ -213,7 +232,7 @@ def _replay(regime, spans):
     cls = ShardedRack if "num_shards" in kw else DisaggregatedRack
     rack = cls(system="mind", engine="batched", engine_options=opts,
                num_compute_blades=2, threads_per_blade=2, **kw)
-    return rack.run(to_port(make()))
+    return rack.run(_dp().to_port(make()))
 
 
 @pytest.fixture(scope="module", params=sorted(REGIMES))
@@ -298,7 +317,7 @@ def test_engine_without_a_recorder_records_nothing():
                              num_compute_blades=2, threads_per_blade=2)
     eng = rack.model.make_batched_engine(**rack.engine_options)
     assert eng.spans is None
-    eng.run(to_port(zipf_trace()))
+    eng.run(_dp().to_port(_dp().zipf_trace()))
     assert set(eng.phase_times) == set(PHASES)
 
 
@@ -379,6 +398,63 @@ def test_decode_spans_lie_inside_the_dispatch(served):
     for n in ("prefill.model", "prefill.pages", "prefill.first_token"):
         assert all(rec.name(rec.parents[i]) == "prefill"
                    for i, m in enumerate(rec.names) if m == n)
+
+
+def test_cpu_steps_count_as_eager(served):
+    (off, s_off), (on, s_on), rec = served
+    for srv, stats in ((off, s_off), (on, s_on)):
+        assert srv.graph_stats == {"captures": 0, "replays": 0,
+                                   "eager": stats["steps"]}
+    assert rec.counters["decode.eager"] == s_on["steps"]
+    assert "decode.graph_capture" not in rec.counters
+    assert "decode.graph_replay" not in rec.counters
+    assert not rec.spans("decode.replay") and not rec.spans("decode.capture")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_graph_steps_hold_one_replay_or_capture(tiny):
+    """On the card every decode step is a capture or a replay: each
+    ``decode.dispatch`` holds exactly one ``decode.replay`` or
+    ``decode.capture`` and no layer span, and the three counters add up
+    to the steps, as ``graph_stats`` does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode graphs are CUDA graphs")
+    cfg, _, params = tiny
+    dev = torch.device("cuda", 0)
+    rec = SpanRecorder()
+    srv = PagedServer(LM(cfg, device=dev), _to(params, dev), device=dev,
+                      max_batch=3, page_tokens=8, num_pages=64, spans=rec)
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, cfg.vocab_size, 16)
+    for n in (5, 3, 9, 5, 12):
+        srv.submit(np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                        n)]),
+                   max_new_tokens=5)
+    stats = srv.run_until_done()
+    dispatch = rec.spans("decode.dispatch")
+    inner = rec.spans("decode.replay") + rec.spans("decode.capture")
+    assert len(dispatch) == stats["steps"] == len(inner)
+    for _, a, b in dispatch:
+        assert sum(a <= s and e <= b for _, s, e in inner) == 1
+    for n in ("decode.embed", "decode.attn", "decode.paged", "decode.ffn",
+              "decode.head"):
+        assert not rec.spans(n), n
+    c = rec.counters
+    assert srv.graph_stats == {"captures": c["decode.graph_capture"],
+                               "replays": c["decode.graph_replay"],
+                               "eager": c.get("decode.eager", 0)}
+    assert sum(srv.graph_stats.values()) == stats["steps"]
+    assert srv.graph_stats["eager"] == 0
+    assert c["decode.graph_capture"] == len(rec.spans("decode.capture"))
+    assert c["decode.graph_replay"] == len(rec.spans("decode.replay")) > 0
 
 
 def test_pool_spans_count_the_pages(served):
