@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of MIND on one GPU: the coherence replay,
-the MIND-paged serving path (a dense and an MoE model), the four model
+the MIND-paged serving path (a dense model, an MoE model and a latent-
+attention MoE model), the four model
 families served through the LM interface alone, and the kernel
 microbench.
 
@@ -36,6 +37,18 @@ exits nonzero):
               call (Hkv 16, G 1, D 128) and layer 0's MoE inputs are
               recorded; the traced window also gives the MoE products'
               share of device time.
+   serve_mla — the same traffic on moonlight-16b-a3b at its published
+              widths (multi-head latent attention: 16 heads, latents 576
+              wide; 64 routed experts top-6 of d_ff 1408, sigmoid routing,
+              2 shared; vocab 163,840) cut to 4 of its 27 layers (layer 0
+              dense, 3 MoE; bf16), from a 4,096-page latent pool, its
+              decode steps replayed as CUDA graphs: the hard checks of
+              serve, every decode layer one paged_mla_attention launch on
+              the mma route (4 x decode steps), every MoE call on wgmma (3
+              x (prefills + decode steps)), and the server's device-side
+              MoE counters exact (prefill slots 3 x 6 x the prompts'
+              tokens, decode slots 3 x 6 x the decode rows).  Its widest
+              decode call is recorded for phase 4.
    moe      — moe_ffn (ragged and capacity) against its plain version
               (the experts walked one by one) on layer 0's recorded
               inputs (the widest decode step, the first prefill) in bf16
@@ -84,7 +97,14 @@ exits nonzero):
               the gemma-2b shape, G = 1 at D = 256, lengths
               [1, 16, 17, 563] in one batch (splits wholly past the short
               sequences), and serve_moe's widest decode call (timed cold
-              beside its bound).
+              beside its bound).  paged_mla_attention on serve_mla's widest
+              decode call, bf16 and cast to fp32 (the simt route, 1e-5),
+              and at the Moonlight cell's decode shapes (B 32, contexts
+              1,359-4,359, bf16), held to its plain version in fp32 within
+              MLA_BAR x the largest output (mla_kernel_row), timed cold and
+              warm beside its byte bound, its plain version and
+              scaled_dot_product_attention on the latents gathered to
+              dense.
    kernel_bench — the kernels the JAX package reaches only through its
               kernel API (repro.kernels.ops, driven by
               benchmarks/kernel_bench.py), through the port's
@@ -108,9 +128,11 @@ exits nonzero):
               tensor-core route (ops.FLASH_ROUTES).  The two kernels'
               launch counts are this phase's.
 5. paged_vs_dense — qwen3-4b at full width in fp32, then moonshot at full
-              width in fp32 cut to 4 layers (all 48 would be 112 GB): one
-              paged decode step through the kernels against the
-              dense-cache decode_step on the same prompt, at 2e-3.
+              width in fp32 cut to 4 layers (all 48 would be 112 GB), then
+              moonlight-16b-a3b cut to 4 layers in fp32: one paged decode
+              step through the kernels (moonlight's the absorbed form over
+              latent pages) against the dense-cache decode_step on the
+              same prompt, at 2e-3.
    families — the four configs the reference serves through no server,
               at full width and depth (xlstm-1.3b: 48 layers, 6 groups of 7
               mLSTM + 1 sLSTM, 3.63 B parameters; zamba2-1.2b: 38 Mamba2
@@ -228,8 +250,8 @@ and left clean: 64 MB written, then 128 MB read, neither timed.
 Each phase's model is freed (gc, empty_cache) before the next allocates.
 
 Then one line {"kernels": [...]} (the six ported TPU kernels, and
-moe_experts and moe_experts_backward, which have no TPU counterpart:
-tpu_kernel false), the nvidia-smi line, and last
+moe_experts, moe_experts_backward and paged_mla_attention, which have no
+TPU counterpart: tpu_kernel false), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Needs one CUDA device; it refuses to run
 without one or outside a checkout of the repository.
 
@@ -240,6 +262,10 @@ its own, times both kernels cold on the main path's recorded calls and
 on the two 4,096-row tables, held bytewise to the plain versions; the
 order is other, this, this, other, three times over, and the medians
 come last.
+
+`python3 chip_smoke.py --mla` runs the latent-attention path alone: phase
+serve_mla, moonlight's paged_vs_dense and the paged_mla_attention row of
+phase 4, each with its hard checks, one JSON line each.
 
 `python3 chip_smoke.py --moe-launches` times each launch of the MoE
 experts' forward and backward alone, warm, at train (d)'s shapes on the
@@ -325,12 +351,18 @@ TENSOR_OPS_S = 989e12
 SEED = 0
 SERVE = dict(requests=16, prompt_len=500, shared_prefix=256, max_new=64,
              max_batch=8, page_tokens=16)
+# serve_mla holds moonlight-16b-a3b at its published widths cut to 4 of
+# its 27 layers (1 dense, 3 MoE: 3.7 GB in bf16) and 4,096 latent pages
+# (0.30 GB).
 SERVES = {"serve": dict(SERVE, arch="qwen3-4b", num_pages=4096),
           "serve_moe": dict(SERVE, arch="moonshot-v1-16b-a3b",
-                            num_pages=1024, param_dtype="bfloat16")}
+                            num_pages=1024, param_dtype="bfloat16"),
+          "serve_mla": dict(SERVE, arch="moonlight-16b-a3b", num_pages=4096,
+                            param_dtype="bfloat16", layers=4)}
 # Phase paged_vs_dense: each serving model at full width in fp32, moonshot
-# cut to 4 of its 48 layers (8.9 GB of fp32 experts; all 48 are 112 GB).
-PAGED_VS_DENSE_LAYERS = {"serve": None, "serve_moe": 4}
+# cut to 4 of its 48 layers (8.9 GB of fp32 experts; all 48 are 112 GB),
+# moonlight to 4 of its 27 (7.4 GB).
+PAGED_VS_DENSE_LAYERS = {"serve": None, "serve_moe": 4, "serve_mla": 4}
 # Phase families: the four configs with no server in the reference, at
 # full width and depth.  (a) bf16 generation (params drawn in bf16: the
 # vlm's 11.5 B are 46.1 GB in fp32, 23.0 GB in bf16; the compute-dtype
@@ -433,9 +465,24 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/moe_experts_sm90.cu",
         replaces="none: no TPU kernel (XLA's autodiff of "
                  "jax.lax.ragged_dot at src/repro/models/moe.py:116)"),
+    # The absorbed decode attention of latent attention: the JAX package
+    # has none.  Reported at the Moonlight cell's decode shapes, bf16 (the
+    # mma route); fp32 runs the SIMT one (ops._mla_route).
+    "paged_mla_attention": dict(
+        source="src/repro_torch/kernels/csrc/paged_mla.cu",
+        replaces="none: no TPU kernel (the JAX package has no latent "
+                 "attention)"),
 }
 # Kernels with no TPU counterpart (a kernel of the port alone).
-NO_TPU_KERNEL = ("moe_experts", "moe_experts_backward")
+NO_TPU_KERNEL = ("moe_experts", "moe_experts_backward",
+                 "paged_mla_attention")
+# paged_mla_attention in 16 bits rounds P and its output to the input
+# type, each a relative error of at most 2^-8 in bf16: it is held to the
+# plain version in fp32 within MLA_BAR times the largest output of the
+# call (2^-7: twice that rounding; tests/test_torch_moonlight.py's bar
+# holds each sequence to 3 x 2^-8 of its own, and shows a page skipped at
+# a CTA boundary of a 4,155-token sequence misses it 3.7 times over).
+MLA_BAR = 2.0 ** -7
 # Kernels on no path of the system: the JAX package reaches them through
 # its kernel API alone, so their launches are those of phase kernel_bench.
 BENCH_KERNELS = ("msi_transition", "flash_attention")
@@ -982,6 +1029,8 @@ def serve_setup(scale: float, compute_dtype: str = "bfloat16",
     if scale < 1:
         cfg = reduced_config(cfg)
         s.update(prompt_len=40, shared_prefix=16, max_new=6, num_pages=512)
+    elif s.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=s["layers"])
     cfg = dataclasses.replace(
         cfg, compute_dtype=compute_dtype,
         param_dtype=param_dtype or s.get("param_dtype", cfg.param_dtype))
@@ -1023,12 +1072,27 @@ def free_device(device) -> None:
         torch.cuda.empty_cache()
 
 
+def attn_kernel(cfg) -> str:
+    """The paged decode kernel of ``cfg``'s attention."""
+    return ("paged_mla_attention" if getattr(cfg, "mla", None)
+            else "paged_attention")
+
+
+def moe_layers(cfg) -> int:
+    """Layers of ``cfg`` with an MoE FFN (past its dense leading ones)."""
+    if cfg.moe is None:
+        return 0
+    return cfg.num_layers - getattr(cfg, "first_k_dense", 0)
+
+
 def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
-    """Phases serve and serve_moe: PagedServer on the cell's model at full
-    width.  Returns the phase line, the recorded arguments of its widest
-    decode call's ``paged_attention`` and, for an MoE model, layer 0's
-    MoE inputs (``moe_ffn``'s input at the widest decode step and at the
-    first prefill, and the layer's params as the server holds them)."""
+    """Phases serve, serve_moe and serve_mla: PagedServer on the cell's
+    model at full width.  Returns the phase line, the recorded arguments of
+    its widest decode call's paged kernel (``paged_attention``'s, or
+    ``paged_mla_attention``'s with its ``dv`` and ``scale`` last) and, for
+    an MoE model, its first MoE layer's inputs (``moe_ffn``'s input at the
+    widest decode step and at the first prefill, and the layer's params as
+    the server holds them)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1070,26 +1134,30 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
     # table; the last of equals that runs eager, so on the card the step
     # that captured the widest key's graph: a replay calls no Python, and
     # a capture runs nothing) for phase 4.
+    kname = attn_kernel(cfg)
+    n_moe = moe_layers(cfg)
     widest = {"key": -1, "args": None, "calls": 0}
-    inner_pa = ops.paged_attention
+    inner_pa = getattr(ops, kname)
     capturing = (torch.cuda.is_current_stream_capturing
                  if device.type == "cuda" else lambda: False)
 
-    def recorder(q, kp, vp, bt, sl, **kw):
+    def recorder(*args, **kw):
+        bt = args[-2]
         if (widest["calls"] % cfg.num_layers == 0 and not capturing()
                 and bt.numel() >= widest["key"]):
             widest["key"] = bt.numel()
-            widest["args"] = tuple(a.clone() for a in (q, kp, vp, bt, sl))
+            widest["args"] = tuple(a.clone() for a in args) + (
+                (kw["dv"], kw["scale"]) if kw else ())
         widest["calls"] += 1
-        return inner_pa(q, kp, vp, bt, sl, **kw)
+        return inner_pa(*args, **kw)
 
-    # Layer 0's moe_ffn inputs: the first prefill's and the widest decode
-    # step's (the last of equals), for phase moe.
+    # The first MoE layer's moe_ffn inputs: the first prefill's and the
+    # widest decode step's (the last of equals), for phase moe.
     moe = {"calls": 0, "decode": None, "prefill": None, "params": None}
     inner_moe = M.moe_ffn
 
     def moe_recorder(p, c, x, **kw):
-        if moe["calls"] % cfg.num_layers == 0 and not capturing():
+        if moe["calls"] % max(n_moe, 1) == 0 and not capturing():
             moe["params"] = p
             if x.shape[1] > 1:
                 if moe["prefill"] is None:
@@ -1099,7 +1167,7 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         moe["calls"] += 1
         return inner_moe(p, c, x, **kw)
 
-    ops.paged_attention = recorder
+    setattr(ops, kname, recorder)
     M.moe_ffn = moe_recorder
     ops.reset_launches()
     try:
@@ -1109,11 +1177,13 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         sync(device)
         wall = time.perf_counter() - t
     finally:
-        ops.paged_attention = inner_pa
+        setattr(ops, kname, inner_pa)
         M.moe_ffn = inner_moe
         del srv._prefill  # back to the method (no reference cycle)
     launches = dict(ops.LAUNCHES)
     moe_routes = dict(ops.MOE_ROUTES)
+    mla_routes = dict(ops.MLA_ROUTES)
+    counters = srv.moe_counters()
 
     done = sorted(srv.finished, key=lambda r: r.rid)
     gen = [r.generated for r in done]
@@ -1128,18 +1198,21 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         raise AssertionError(f"paging stats {stats}, pages in use {in_use}")
     steps = stats["steps"]
     if device.type == "cuda" and not (
-            launches["paged_attention"] == steps * cfg.num_layers > 0):
-        raise AssertionError(f"paged_attention launched "
-                             f"{launches['paged_attention']} times in "
+            launches[kname] == steps * cfg.num_layers > 0):
+        raise AssertionError(f"{kname} launched {launches[kname]} times in "
                              f"{steps} decode steps of {cfg.num_layers} "
                              f"layers")
-    moe_calls = cfg.num_layers * (prefill["calls"] + steps)
+    if (device.type == "cuda" and kname == "paged_mla_attention"
+            and mla_routes["mma"] != launches[kname]):
+        raise AssertionError(f"bf16 paged_mla_attention routes "
+                             f"{mla_routes}, expected every call on mma")
+    moe_calls = n_moe * (prefill["calls"] + steps)
     if cfg.moe is not None:
         # Python calls: every prefill and eager step, and a capture's
         # eager step and capture; a replay makes none.
         g = srv.graph_stats
-        py_calls = cfg.num_layers * (prefill["calls"] + g["eager"]
-                                     + 2 * g["captures"])
+        py_calls = n_moe * (prefill["calls"] + g["eager"]
+                            + 2 * g["captures"])
         if moe["calls"] != py_calls:
             raise AssertionError(f"{moe['calls']} moe_ffn calls, expected "
                                  f"{py_calls} ({g})")
@@ -1155,10 +1228,27 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
                                  f"{launches['moe_experts']} times "
                                  f"({moe_routes}), expected {moe_calls} on "
                                  f"the {route} route")
+        # The device-side counters, added to by replays too: a slot per
+        # (token, chosen expert) of every MoE layer; a prefill routes its
+        # whole prompt, a decode step one row a request, each request's
+        # rows after its first token.
+        k = cfg.moe.top_k
+        want = {"prefill.moe.slots": n_moe * k * len(prompts)
+                * s["prompt_len"],
+                "decode.moe.slots": n_moe * k * len(prompts)
+                * (s["max_new"] - 1)}
+        touched = counters["prefill.moe.experts_touched"] + counters[
+            "decode.moe.experts_touched"]
+        if ({n: counters[n] for n in want} != want or not 0 < touched
+                <= cfg.moe.num_experts * moe_calls):
+            raise AssertionError(f"MoE counters {counters}, expected "
+                                 f"{want} and 0 < experts touched <= "
+                                 f"{cfg.moe.num_experts * moe_calls}")
     decode_s = wall - prefill["s"]
     peak = (torch.cuda.max_memory_allocated(device) / 1e9
             if device.type == "cuda" else None)
     profile = profile_decode(srv, prompts[:s["max_batch"]], device)
+    pools = 1 if srv.pool.v_pool is None else 2
     line = dict(
         arch=cfg.arch_id, family=cfg.family, layers=cfg.num_layers,
         d_model=cfg.d_model, heads=cfg.num_heads,
@@ -1169,7 +1259,7 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         shared_prefix=s["shared_prefix"], max_new=s["max_new"],
         max_batch=s["max_batch"], page_tokens=s["page_tokens"],
         num_pages=s["num_pages"],
-        pool_gb=2 * srv.pool.k_pool.numel()
+        pool_gb=pools * srv.pool.k_pool.numel()
         * srv.pool.k_pool.element_size() / 1e9,
         init_s=init_s, wall_s=wall, prefill_s=prefill["s"],
         prefills=prefill["calls"], decode_s=decode_s,
@@ -1177,10 +1267,13 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         decode_tokens_per_s=stats["tokens"] / decode_s,
         stats=stats, pages_in_use=in_use, launches=launches,
         peak_mem_gb=peak, decode_profile=profile)
+    if getattr(cfg, "mla", None):
+        line.update(latent_dim=cfg.mla.latent_dim, mla_routes=mla_routes,
+                    first_k_dense=cfg.first_k_dense)
     if cfg.moe is not None:
         line.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
                     d_ff_expert=cfg.moe.d_ff_expert, moe_calls=moe_calls,
-                    moe_routes=moe_routes)
+                    moe_routes=moe_routes, moe_counters=counters)
         return line, widest["args"], moe
     return line, widest["args"], None
 
@@ -1189,6 +1282,11 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
 # profiler trace: the wgmma route's, then the wmma and simt routes'.  The
 # backward's all carry "moe_bwd_".
 MOE_KERNEL_NAMES = ("moe_wgmma_kernel", "moe_wmma_kernel", "moe_simt_kernel")
+# The paged decode kernels: paged_attention's split and combine, then
+# paged_mla_attention's split (mma or simt route) and combine.
+PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_combine_kernel",
+                      "paged_mla_mma_kernel", "paged_mla_simt_kernel",
+                      "paged_mla_combine_kernel")
 
 
 def device_kernels(prof):
@@ -1247,16 +1345,16 @@ def profile_decode(srv, prompts, device, steps: int = 8):
     kern = device_kernels(prof)
     busy_ms = sum(ms for _, _, ms in kern)
     seen = busy_ms > 0
-    # Both kernels of paged_attention: the split pass and the combine; and
-    # the MoE products (up and down launches of one route).
+    # The paged kernels (paged_attention's split pass and combine, or
+    # paged_mla_attention's) and the MoE products (up and down launches of
+    # one route).
     named = {name: [dict(name=k[:90], count=c, ms=ms, share=ms / busy_ms)
                     for k, c, ms in kern if name in k]
-             for name in ("paged_split_kernel", "paged_combine_kernel",
-                          *MOE_KERNEL_NAMES)}
+             for name in (*PAGED_KERNEL_NAMES, *MOE_KERNEL_NAMES)}
     moe_ms = sum(r["ms"] for n in MOE_KERNEL_NAMES for r in named[n])
     return dict(window_line(kern, wall, steps),
-                paged_kernels={n: named[n] for n in (
-                    "paged_split_kernel", "paged_combine_kernel")}
+                paged_kernels={n: named[n] for n in PAGED_KERNEL_NAMES
+                               if named[n]}
                 if seen else None,
                 moe_kernels=dict(
                     ms=moe_ms, share=moe_ms / busy_ms,
@@ -1620,6 +1718,93 @@ def moe_backward_case(device, name, args, dtype: str, timed: bool):
                     lambda: grouped_mm_backward_library(*lib_args), 10,
                     device)
     return row
+
+
+def mla_held(name, got, want) -> tuple[float, float]:
+    """``paged_mla_attention``'s bf16 output against the fp32 plain
+    version: ``(max abs err, tolerance)``, the tolerance MLA_BAR times the
+    largest output; raises beyond it."""
+    tol = MLA_BAR * float(want.abs().max())
+    return held(name, got.float(), want, tol), tol
+
+
+def mla_kernel_row(device, recorded) -> dict:
+    """Phase 4's ``paged_mla_attention`` row: on serve_mla's widest decode
+    call (``recorded``: q, the latent pool, tables, lengths, dv, scale) in
+    bf16 against the plain version in fp32 (``mla_held``) and cast to fp32
+    (the simt route, 1e-5); then at the Moonlight cell's decode shapes: 32
+    sequences of 16 heads, latents 576 wide (values the first 512), bf16,
+    pages of 16 in a pool of 16,384, context lengths the doc-qa mix's
+    prompts (each of its 16 lengths twice) plus 0-217 tokens decoded, held
+    the same way and timed cold and warm beside its bound (the latent
+    pages, q and the output once, at 3.35 TB/s), the plain version's time
+    and ``scaled_dot_product_attention`` on the latents gathered to dense
+    (the library's yardstick, its gather not timed)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_mla import paged_mla_plain
+
+    *call, rdv, rscale = recorded
+    rq, rpool, rbt, rsl = call
+    serve_err, serve_tol = mla_held(
+        "paged_mla_attention (bf16, serve_mla call)",
+        ops.paged_mla_attention(*call, dv=rdv, scale=rscale),
+        paged_mla_plain(rq.float(), rpool.float(), rbt, rsl, rdv, rscale))
+    f32 = (rq.float(), rpool.float(), rbt, rsl)
+    serve_err32 = held("paged_mla_attention (fp32, serve_mla call)",
+                       ops.paged_mla_attention(*f32, dv=rdv, scale=rscale),
+                       paged_mla_plain(*f32, rdv, rscale), 1e-5)
+    del f32, call, rq, rpool
+
+    prompts = [1359, 1488, 1583, 1667, 1747, 1828, 1912, 2001, 2097, 2205,
+               2328, 2473, 2656, 2901, 3282, 4155]
+    lens = [n + (7 * i) % 218 for i, n in enumerate(prompts * 2)]
+    b, h, dk, dv, page, npool = len(lens), 16, 576, 512, 16, 16384
+    maxp = (max(-(-n // page) for n in lens) + 7) // 8 * 8
+    g = torch.Generator(device=device).manual_seed(0)
+    pool = torch.randn((npool, page, dk), generator=g, device=device,
+                       dtype=torch.bfloat16)
+    tables = torch.randperm(npool, generator=g, device=device)[: b * maxp]
+    tables = tables.reshape(b, maxp).to(torch.int32)
+    q = (torch.randn((b, h, dk), generator=g, device=device) * 0.3).to(
+        torch.bfloat16)
+    sl = torch.tensor(lens, dtype=torch.int32, device=device)
+    scale = 1 / math.sqrt(192)
+
+    def kernel():
+        return ops.paged_mla_attention(q, pool, tables, sl, dv=dv,
+                                       scale=scale)
+
+    err, tol = mla_held("paged_mla_attention (bf16, cell shapes)", kernel(),
+                        paged_mla_plain(q.float(), pool.float(), tables, sl,
+                                        dv, scale))
+    pages = sum(-(-n // page) for n in lens)
+    nbytes = (b * h * (dk + dv) + pages * page * dk) * 2
+    nops = 2 * (dk + dv) * h * sum(lens)
+    bound = bound_ms(nbytes, nops, TENSOR_OPS_S)
+    cold = time_ms_cold(kernel, 50, device)
+    warm = time_ms(kernel, 200, device)
+    plain = time_ms(lambda: paged_mla_plain(q, pool, tables, sl, dv, scale),
+                    3, device)
+    kv = pool[tables.long()].reshape(b, 1, maxp * page, dk)
+    mask = (torch.arange(maxp * page, device=device)[None, :]
+            < sl[:, None])[:, None, None, :]
+    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kv, kv[..., :dv], attn_mask=mask, scale=scale), 20,
+        device)
+    return dict(
+        max_abs_err=max(err, serve_err), max_abs_err_cell=err,
+        max_abs_err_serve_call=serve_err, max_abs_err_fp32=serve_err32,
+        tolerance=dict(bf16_cell=tol, bf16_serve_call=serve_tol,
+                       fp32=1e-5, bar=MLA_BAR),
+        shape=dict(B=b, H=h, Dk=dk, Dv=dv, page=page, maxp=maxp,
+                   tokens=sum(lens), serve_call=dict(
+                       B=rbt.shape[0], maxp=rbt.shape[1],
+                       seq_lens=rsl.tolist())),
+        route=ops._mla_route(q.dtype, dk, dv), ms=cold, warm_ms=warm,
+        bound=bound, share_cold=bound[0] / cold, share_warm=bound[0] / warm,
+        plain_ms=plain, library_ms=sdpa)
 
 
 def moe_launch_times(device) -> dict:
@@ -2149,10 +2334,10 @@ def phase_kernel_bench(device, scale: float = 1.0):
 
 
 def phase_paged_vs_dense(device, scale: float = 1.0, cell: str = "serve"):
-    """Phase 5: a serving cell's model at full width in fp32 (moonshot cut
-    to PAGED_VS_DENSE_LAYERS layers) — one paged decode step through the
-    kernels against the dense-cache ``decode_step`` on the same prompt
-    (the contract of tests/test_serving.py, at 2e-3)."""
+    """Phase 5: a serving cell's model at full width in fp32 (moonshot and
+    moonlight cut to PAGED_VS_DENSE_LAYERS layers) — one paged decode step
+    through the kernels against the dense-cache ``decode_step`` on the
+    same prompt (the contract of tests/test_serving.py, at 2e-3)."""
     import numpy as np
     import torch
 
@@ -2194,10 +2379,9 @@ def phase_paged_vs_dense(device, scale: float = 1.0, cell: str = "serve"):
                                tokens, lengths,
                                torch.from_numpy(bt).to(device))
     sync(device)
-    launches = {k: ops.LAUNCHES[k] for k in ("paged_attention",
-                                             "moe_experts")}
-    want_launches = {"paged_attention": cfg.num_layers,
-                     "moe_experts": cfg.num_layers if cfg.moe else 0}
+    kname = attn_kernel(cfg)
+    launches = {k: ops.LAUNCHES[k] for k in (kname, "moe_experts")}
+    want_launches = {kname: cfg.num_layers, "moe_experts": moe_layers(cfg)}
     if device.type == "cuda" and launches != want_launches:
         raise AssertionError(f"launches {launches} for {cfg.num_layers} "
                              f"layers, expected {want_launches}")
@@ -3736,6 +3920,21 @@ def main() -> int:
         return tcam_ab(Path(sys.argv[2]).resolve())
     sys.path.insert(0, str(SRC))
     device = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--mla"]:
+        from repro_torch.kernels import ops
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        emit({"phase": "env", "device": torch.cuda.get_device_name(0),
+              "nvidia_smi": nvidia_smi_line()})
+        ops.load_library()
+        serve_mla, recorded_mla, _ = phase_serve(device, cell="serve_mla")
+        emit({"phase": "serve_mla", **serve_mla})
+        free_device(device)
+        emit({"phase": "paged_vs_dense",
+              **phase_paged_vs_dense(device, cell="serve_mla")})
+        free_device(device)
+        emit({"phase": "mla_kernel", **mla_kernel_row(device, recorded_mla)})
+        return 0
     if sys.argv[1:2] == ["--moe-launches"]:
         emit({"nvidia_smi": nvidia_smi_line(),
               **moe_launch_times(device)})
@@ -3789,6 +3988,11 @@ def main() -> int:
           **serve_moe})
     free_device(device)  # the model goes; layer 0's MoE params stay
     t = time.perf_counter()
+    serve_mla, recorded_mla, _ = phase_serve(device, cell="serve_mla")
+    emit({"phase": "serve_mla", "seconds": time.perf_counter() - t,
+          **serve_mla})
+    free_device(device)
+    t = time.perf_counter()
     moe = phase_moe(device, serve_setup(1.0, cell="serve_moe")[0], moe_rec)
     del moe_rec
     emit({"phase": "moe", "seconds": time.perf_counter() - t, **moe})
@@ -3801,6 +4005,8 @@ def main() -> int:
     kern["paged_attention"] = paged_kernel_row(
         device, recorded, {"moonshot_serve_call": recorded_moe})
     del recorded, recorded_moe
+    kern["paged_mla_attention"] = mla_kernel_row(device, recorded_mla)
+    del recorded_mla
     prod = moe["products"]["decode bfloat16"]
     kern["moe_experts"] = dict(
         max_abs_err=max(r["max_abs_err"] for r in moe["products"].values()),
@@ -3873,9 +4079,12 @@ def main() -> int:
 
     # Launches on each kernel's path: the main replay cell, phase
     # kernel_bench, the serve run (paged_attention; serve_moe's beside it),
-    # the serve_moe run (moe_experts) and train (d) (moe_experts_backward).
+    # the serve_moe run (moe_experts), train (d) (moe_experts_backward)
+    # and the serve_mla run (paged_mla_attention).
     launches = {**main_run["launches"], **bench_launches,
                 "paged_attention": serve["launches"]["paged_attention"],
+                "paged_mla_attention":
+                    serve_mla["launches"]["paged_mla_attention"],
                 "moe_experts": serve_moe["launches"]["moe_experts"],
                 "moe_experts_backward":
                     train["moe"]["moe_backward_launches"]}

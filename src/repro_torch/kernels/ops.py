@@ -18,8 +18,10 @@ the ``flash_attention`` launches by route (:func:`_flash_route`),
 ``LANE_ROUTES`` the ``lane_replay`` launches (:func:`_lane_route`),
 ``TCAM_ROUTES`` the ``translate_lookup`` and ``protect_check`` launches
 (:func:`_tcam_route`), ``MOE_ROUTES`` the ``moe_experts`` calls
-(:func:`_moe_route`; up, then down, counted once) and ``MOE_BWD_ROUTES``
-the ``moe_experts_backward`` calls (its four launches counted once).
+(:func:`_moe_route`; up, then down, counted once), ``MOE_BWD_ROUTES``
+the ``moe_experts_backward`` calls (its four launches counted once) and
+``MLA_ROUTES`` the ``paged_mla_attention`` calls (split, then combine,
+counted once; :func:`_mla_route`).
 ``COUNTS`` holds every tally.  A call captured into a CUDA graph launches
 nothing while it is captured; whoever replays the graph adds the tallies
 its capture made (``PagedServer``'s decode step does).
@@ -60,6 +62,7 @@ from repro_torch.kernels.moe_experts import (
     moe_experts_plain,
 )
 from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.paged_mla import paged_mla_plain
 from repro_torch.kernels.range_match import (
     NO_MATCH,
     protect_check_plain,
@@ -75,14 +78,16 @@ _LPM_ROWS = 1 << 20  # translate keys are log2 * 2^20 + row
 
 LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
             "paged_attention": 0, "msi_transition": 0, "flash_attention": 0,
-            "moe_experts": 0, "moe_experts_backward": 0}
+            "moe_experts": 0, "moe_experts_backward": 0,
+            "paged_mla_attention": 0}
 FLASH_ROUTES = {"wgmma": 0, "simt": 0}
 LANE_ROUTES = {"smem": 0, "global": 0}
 TCAM_ROUTES = {"staged": 0, "tiled": 0}
 MOE_ROUTES = {"wgmma": 0, "wmma": 0, "simt": 0}
 MOE_BWD_ROUTES = {"wgmma": 0, "wmma": 0, "simt": 0}
+MLA_ROUTES = {"mma": 0, "simt": 0}
 COUNTS = (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES, MOE_ROUTES,
-          MOE_BWD_ROUTES)  # every tally above
+          MOE_BWD_ROUTES, MLA_ROUTES)  # every tally above
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -177,6 +182,12 @@ def _declare(lib) -> None:
                                                  + [ctypes.c_float, p])
     # dtype, ws, out, B Hq D splits, stream
     lib.paged_attention_combine_launch.argtypes = [i, p, p, i, i, i, i, p]
+    # dtype, route, q lat tables lens ws, B H P page Dk Dv maxp n pmax,
+    # scale, stream
+    lib.paged_mla_split_launch.argtypes = ([i, i] + [p] * 5 + [i] * 9
+                                           + [ctypes.c_float, p])
+    # dtype, ws, lens, out, B H page maxp n Dv, stream
+    lib.paged_mla_combine_launch.argtypes = [i, p, p, p] + [i] * 6 + [p]
     # 7 inputs (table last), S, B, 5 outputs, workspace and its bytes,
     # stream
     lib.msi_transition_launch.argtypes = ([p] * 7 + [i, i] + [p] * 6
@@ -198,7 +209,9 @@ def _declare(lib) -> None:
               lib.lane_replay_launch,
               lib.lane_replay_smem_optin,
               lib.paged_attention_split_launch,
-              lib.paged_attention_combine_launch, lib.msi_transition_launch,
+              lib.paged_attention_combine_launch,
+              lib.paged_mla_split_launch, lib.paged_mla_combine_launch,
+              lib.msi_transition_launch,
               lib.flash_attention_launch, lib.flash_attention_sm90_launch,
               lib.moe_experts_launch, lib.moe_bwd_dh_launch,
               lib.moe_bwd_dx_launch, lib.moe_bwd_dw_launch):
@@ -602,6 +615,101 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                 hkv * g, d, splits, _stream(dev)),
                 "paged_attention (combine)")
         LAUNCHES["paged_attention"] += 1
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Decode attention of MLA over the paged latent pool.
+# --------------------------------------------------------------------- #
+_MLA_ROUTE_IDS = {"mma": 0, "simt": 1}
+_MLA_HEADS = 16  # heads of one CTA (kHMax in csrc/paged_mla.cu)
+_MLA_MAX_DK = 576
+_MLA_MAX_B = 1024  # kMaxB there
+_MLA_MMA_DV = 512  # the mma route's value width (MLA's kv_lora_rank)
+
+
+def _mla_ctas(b: int, maxp: int, sms: int) -> tuple[int, int]:
+    """``(n, pmax)``: the split kernel's CTAs, from shapes only (two an SM,
+    more if a CTA would otherwise hold more than ``_PA_MAX_PPS`` pages, at
+    most one a block-table entry), and the most pages one of them holds,
+    ``ceil(b * maxp / n)``."""
+    total = max(b * maxp, 1)
+    n = min(max(2 * sms, -(-total // _PA_MAX_PPS)), total)
+    return n, -(-total // n)
+
+
+def _mla_route(dtype: torch.dtype, dk: int, dv: int,
+               aligned: bool = True) -> str:
+    """``"mma"`` (tensor cores: bf16/fp16, ``dk`` a multiple of 64, ``dv``
+    512, q and the pool 16-byte aligned) or ``"simt"``."""
+    if (dtype in (torch.bfloat16, torch.float16) and dk % 64 == 0
+            and dv == _MLA_MMA_DV and aligned):
+        return "mma"
+    return "simt"
+
+
+def paged_mla_attention(q: torch.Tensor, latent: torch.Tensor,
+                        block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                        *, dv: int, scale: float):
+    """Absorbed MLA decode attention over the paged latent pool (see
+    :mod:`repro_torch.kernels.paged_mla`).
+
+    ``q`` ``[B, H, Dk]`` (``H <= 16``, ``Dk <= 576``); ``latent`` ``[P, page,
+    Dk]`` in q's dtype (float32, bfloat16 or float16); ``block_tables`` int32
+    ``[B, maxp]``; ``seq_lens`` int32 ``[B]``.  Each head's value is the
+    latent's first ``dv`` entries.  Returns ``[B, H, dv]`` in q's dtype."""
+    dev = q.device
+    if not isinstance(q, torch.Tensor) or q.dtype not in _PA_DTYPES:
+        raise TypeError(f"q must be a float32/bfloat16/float16 tensor, got "
+                        f"{getattr(q, 'dtype', type(q))}")
+    _expect(q, "q", q.dtype, 3, dev)
+    _expect(latent, "latent", q.dtype, 3, dev)
+    b, h, dk = q.shape
+    p, page, dkl = latent.shape
+    if (dkl != dk or not 0 < dk <= _MLA_MAX_DK or not 0 < dv <= dk
+            or not 0 < h <= _MLA_HEADS or p == 0 or page == 0):
+        raise ValueError(f"paged_mla_attention shapes: q {tuple(q.shape)}, "
+                         f"pool {tuple(latent.shape)}, dv {dv} (need Dk <= "
+                         f"{_MLA_MAX_DK} equal in both, 0 < dv <= Dk, H <= "
+                         f"{_MLA_HEADS}, P > 0, page > 0)")
+    _expect(block_tables, "block_tables", torch.int32, 2, dev)
+    _expect(seq_lens, "seq_lens", torch.int32, 1, dev)
+    if block_tables.shape[0] != b or seq_lens.shape[0] != b:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} and "
+                         f"seq_lens {tuple(seq_lens.shape)} must have B={b} "
+                         f"rows")
+    maxp = block_tables.shape[1]
+    for n, name in ((p * page * dk, "P*page*Dk"), (maxp * page, "maxp*page")):
+        _int32_range(n, name)
+    if b > _MLA_MAX_B:
+        raise ValueError(f"B={b} exceeds the kernel's {_MLA_MAX_B} sequences")
+    if dev.type != "cuda":
+        return paged_mla_plain(q, latent, block_tables, seq_lens, dv,
+                               float(scale))
+    lib = load_library()
+    out = torch.empty((b, h, dv), dtype=q.dtype, device=dev)
+    if b:
+        route = _mla_route(q.dtype, dk, dv, q.data_ptr() % 16 == 0
+                           and latent.data_ptr() % 16 == 0)
+        n, pmax = _mla_ctas(
+            b, maxp,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        # fp32 partials (m, l, acc): a slot per (CTA, sequence) segment.
+        ws = torch.empty((n + b, h, dv + 2), dtype=torch.float32,
+                         device=dev)
+        with torch.cuda.device(dev):
+            _check(lib.paged_mla_split_launch(
+                _PA_DTYPES[q.dtype], _MLA_ROUTE_IDS[route], q.data_ptr(),
+                latent.data_ptr(), block_tables.data_ptr(),
+                seq_lens.data_ptr(), ws.data_ptr(), b, h, p, page, dk, dv,
+                maxp, n, pmax, float(scale), _stream(dev)),
+                "paged_mla_attention (split)")
+            _check(lib.paged_mla_combine_launch(
+                _PA_DTYPES[q.dtype], ws.data_ptr(), seq_lens.data_ptr(),
+                out.data_ptr(), b, h, page, maxp, n, dv, _stream(dev)),
+                "paged_mla_attention (combine)")
+        LAUNCHES["paged_mla_attention"] += 1
+        MLA_ROUTES[route] += 1
     return out
 
 
@@ -1035,11 +1143,11 @@ def moe_experts_backward(dy: torch.Tensor, xs: torch.Tensor,
 
 
 __all__ = [
-    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "MOE_BWD_ROUTES",
-    "MOE_ROUTES", "NO_MATCH", "TCAM_ROUTES", "build_library",
-    "build_transition_table", "flash_attention", "lane_replay",
-    "lane_smem_bytes", "load_library", "moe_experts",
+    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "MLA_ROUTES",
+    "MOE_BWD_ROUTES", "MOE_ROUTES", "NO_MATCH", "TCAM_ROUTES",
+    "build_library", "build_transition_table", "flash_attention",
+    "lane_replay", "lane_smem_bytes", "load_library", "moe_experts",
     "moe_experts_backward", "msi_transition",
-    "msi_transition_vectorized", "paged_attention", "protect_check",
-    "reset_launches", "translate_lookup",
+    "msi_transition_vectorized", "paged_attention", "paged_mla_attention",
+    "protect_check", "reset_launches", "translate_lookup",
 ]

@@ -3,7 +3,9 @@
 The counterpart of ``repro/memory/paged_pool.py``:
 
   * physical KV pages live in pooled tensors ``[L, P, page, Hkv, hd]`` on
-    the server's device ("memory-blade" memory);
+    the server's device ("memory-blade" memory); a latent pool (MLA,
+    ``latent=True``) holds one ``[L, P, page, 1, width]`` pool of each
+    token's latent and no V pool (``v_pool`` is ``None``);
   * every physical page is backed by a MIND virtual page: allocation goes
     through the control plane (balanced placement + first-fit), protection
     is per-session (PDID = session id -> its pages), and *shared prefix
@@ -62,15 +64,20 @@ class PagedKVPool:
     def __init__(self, num_layers: int, num_pages: int, page_tokens: int,
                  num_kv_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.bfloat16, num_replicas: int = 1,
-                 mind_kw: dict | None = None, device=None, spans=None):
+                 mind_kw: dict | None = None, device=None, spans=None,
+                 latent: bool = False):
         device = resolve_device(device, "PagedKVPool")
+        if latent and num_kv_heads != 1:
+            raise ValueError("a latent pool holds one latent a token "
+                             "(num_kv_heads=1)")
         self.spans = spans
         self.shape = (num_layers, num_pages, page_tokens, num_kv_heads,
                       head_dim)
         self.page_tokens = page_tokens
         self.num_pages = num_pages
         self.k_pool = torch.zeros(self.shape, dtype=dtype, device=device)
-        self.v_pool = torch.zeros(self.shape, dtype=dtype, device=device)
+        self.v_pool = (None if latent else
+                       torch.zeros(self.shape, dtype=dtype, device=device))
 
         # --- MIND wiring: 1 memory blade per 4k physical pages, replicas
         # act as compute blades with local caches.
@@ -186,7 +193,8 @@ class PagedKVPool:
                 sp.begin("pool.cow_copy")
             new_pid = self.alloc_page(session, replica, prefix_key=None)
             self.k_pool[:, new_pid] = self.k_pool[:, pid]
-            self.v_pool[:, new_pid] = self.v_pool[:, pid]
+            if self.v_pool is not None:
+                self.v_pool[:, new_pid] = self.v_pool[:, pid]
             self.stats["cow"] += 1
             self.free_page(pid, session)  # drop the writer's reference
             if sp is not None:
@@ -210,7 +218,8 @@ class PagedKVPool:
     # ------------------------------------------------------------------ #
     def write_tokens(self, pid: int, offset: int, k, v) -> None:
         """k/v: ``[L, T, Hkv, hd]`` for T tokens starting at `offset`,
-        written in place."""
+        written in place (a latent pool's: ``k`` the latents ``[L, T, 1,
+        width]``, ``v`` ``None``)."""
         t = k.shape[1]
         if offset + t > self.page_tokens:
             raise ValueError(f"{t} tokens at offset {offset} overflow a "
@@ -219,7 +228,8 @@ class PagedKVPool:
         if sp is not None:
             sp.begin("pool.tokens")
         self.k_pool[:, pid, offset:offset + t] = k
-        self.v_pool[:, pid, offset:offset + t] = v
+        if self.v_pool is not None:
+            self.v_pool[:, pid, offset:offset + t] = v
         if sp is not None:
             sp.end()
 

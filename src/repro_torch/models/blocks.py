@@ -5,7 +5,10 @@ The counterpart of ``repro/models/blocks.py``:
   * dense / moe / audio / vlm-self: pre-norm attention, then an MLP or,
     for a config with ``moe`` set, the MoE FFN of
     :mod:`repro_torch.models.moe` (its params under ``"moe"`` in place of
-    ``"mlp"``);
+    ``"mlp"``; a layer's params say which it has).  With ``cfg.mla`` the
+    attention is multi-head latent attention, whose cache is one latent a
+    token (``mla_block_prefill`` / ``mla_block_decode``), and the first
+    ``first_k_dense`` layers keep a dense MLP;
   * vlm-cross: gated cross attention and a gated MLP (llama-3.2-vision);
   * mLSTM / sLSTM: the xLSTM blocks (matrix / scalar memory, exp gating);
   * Mamba2: the SSD block (causal conv, then the SSM through the chunked
@@ -33,6 +36,7 @@ from repro_torch.models.linear_recurrence import (
     chunked_linear_attention,
     recurrent_step,
 )
+from repro_torch.telemetry.spans import clock
 
 
 def _zeros(shape, dt, gen):
@@ -52,24 +56,39 @@ def _log_sigmoid(x):
 # --------------------------------------------------------------------- #
 # Dense / MoE transformer block.
 # --------------------------------------------------------------------- #
-def dense_block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _is_moe(cfg: ModelConfig, layer: int) -> bool:
+    """Whether layer ``layer`` has the MoE FFN: a config with ``moe``,
+    past its ``first_k_dense`` leading dense layers (0 unless set)."""
+    return cfg.moe is not None and layer >= getattr(cfg, "first_k_dense", 0)
+
+
+def _is_mla(cfg: ModelConfig) -> bool:
+    return getattr(cfg, "mla", None) is not None
+
+
+def dense_block_params(gen: torch.Generator, cfg: ModelConfig,
+                       layer: int = 0) -> dict:
+    """The params of layer ``layer``: attention (MLA where ``cfg.mla`` is
+    set), then its MLP or MoE."""
     dt = L._dtype(cfg.param_dtype)
     p = {
         "attn_norm": _zeros((cfg.d_model,), dt, gen),
-        "attn": L.attention_params(gen, cfg),
+        "attn": (L.mla_params(gen, cfg) if _is_mla(cfg)
+                 else L.attention_params(gen, cfg)),
         "mlp_norm": _zeros((cfg.d_model,), dt, gen),
     }
-    if cfg.moe is not None:
+    if _is_moe(cfg, layer):
         p["moe"] = M.moe_params(gen, cfg)
     else:
         p["mlp"] = L.mlp_params(gen, cfg)
     return p
 
 
-def dense_block_ffn(p, cfg: ModelConfig, h):
-    """The block's MLP, or its MoE (``moe_ffn``, aux dropped)."""
-    if cfg.moe is not None:
-        return M.moe_ffn(p["moe"], cfg, h)[0]
+def dense_block_ffn(p, cfg: ModelConfig, h, *, tally=None, marks=None):
+    """The block's MLP, or its MoE (``moe_ffn``, aux dropped; ``tally``
+    and ``marks`` handed on)."""
+    if "moe" in p:
+        return M.moe_ffn(p["moe"], cfg, h, tally=tally, marks=marks)[0]
     return L.mlp(p["mlp"], cfg, h)
 
 
@@ -77,15 +96,17 @@ def dense_block_train(p, cfg: ModelConfig, x, positions):
     """Full-sequence block: ``(x, aux)``, aux the MoE load-balance loss (0
     without MoE)."""
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    x = x + L.attention(p["attn"], cfg, h, positions)
+    attn = L.mla_attention if _is_mla(cfg) else L.attention
+    x = x + attn(p["attn"], cfg, h, positions)
     h = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    if cfg.moe is not None:
+    if "moe" in p:
         y, aux = M.moe_ffn(p["moe"], cfg, h)
         return x + y, aux
     return x + L.mlp(p["mlp"], cfg, h), torch.zeros((), device=x.device)
 
 
-def dense_block_prefill(p, cfg: ModelConfig, x, positions, max_len=None):
+def dense_block_prefill(p, cfg: ModelConfig, x, positions, max_len=None, *,
+                        tally=None):
     """Full-sequence block that also returns the layer's K/V for cache
     population: ``(x, k, v)``."""
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
@@ -93,7 +114,7 @@ def dense_block_prefill(p, cfg: ModelConfig, x, positions, max_len=None):
                                   max_len=max_len)
     x = x + o
     h = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + dense_block_ffn(p, cfg, h), k, v
+    return x + dense_block_ffn(p, cfg, h, tally=tally), k, v
 
 
 def dense_block_decode(p, cfg: ModelConfig, x, cache, position):
@@ -107,10 +128,44 @@ def dense_block_decode(p, cfg: ModelConfig, x, cache, position):
     return x + dense_block_ffn(p, cfg, h), {"k": ck, "v": cv}
 
 
+def mla_block_prefill(p, cfg: ModelConfig, x, positions, max_len=None, *,
+                      tally=None, marks=None):
+    """The MLA block over the whole sequence: ``(x, {"latent": [B,
+    max_len, r + rope]})``.  With ``marks`` (a list), the host's clock is
+    appended after the attention and after the FFN (and inside the MoE,
+    see ``moe_ffn``)."""
+    h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    o, lat = L.mla_attention_with_latent(p["attn"], cfg, h, positions)
+    if marks is not None:
+        marks.append(clock())
+    x = x + o
+    h = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    x = x + dense_block_ffn(p, cfg, h, tally=tally, marks=marks)
+    if marks is not None:
+        marks.append(clock())
+    s = lat.shape[1]
+    if max_len is not None and max_len > s:
+        lat = F.pad(lat, (0, 0, 0, max_len - s))
+    return x, {"latent": lat}
+
+
+def mla_block_decode(p, cfg: ModelConfig, x, cache, position):
+    """x: ``[B, 1, d]``; cache: ``dict(latent=[B, Smax, r + rope])``,
+    written in place and returned."""
+    h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    o, lat = L.mla_decode(p["attn"], cfg, h, cache["latent"], position)
+    x = x + o
+    h = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + dense_block_ffn(p, cfg, h), {"latent": lat}
+
+
 def dense_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
-    """``{"k": (shape, dtype), "v": (shape, dtype)}`` of one layer's cache."""
+    """``{"k": (shape, dtype), "v": (shape, dtype)}`` of one layer's cache
+    (MLA's: ``{"latent": ([B, max_len, r + rope], dtype)}``)."""
     hd = cfg.resolved_head_dim
     dt = L._dtype(cfg.compute_dtype)
+    if _is_mla(cfg):
+        return {"latent": ((batch, max_len, cfg.mla.latent_dim), dt)}
     shape = (batch, max_len, cfg.num_kv_heads, hd)
     return {"k": (shape, dt), "v": (shape, dt)}
 

@@ -7,7 +7,9 @@ one ``[B, Hkv, G, bq, bk]`` block.  The reference is jnp, not a Pallas
 kernel, so this stays torch ops, in the reference's order: q is scaled
 before the dot product, padded keys are masked to ``-1e30``, and the
 denominator is clamped at ``1e-30``.  As in the reference, causal blocks
-above the diagonal are still computed (and masked).
+above the diagonal are still computed (and masked).  V may be narrower
+than Q and K (MLA's 192-wide query-key heads over 128-wide values): the
+scale comes from Q's width and the output has V's.
 """
 
 from __future__ import annotations
@@ -26,12 +28,14 @@ def _ceil_to(x: int, m: int) -> int:
 
 def chunked_attention(q, k, v, *, causal: bool = True,
                       q_block: int = 512, k_block: int = 1024):
-    """q: ``[B, Sq, Hq, D]``; k/v: ``[B, Sk, Hkv, D]`` -> ``[B, Sq, Hq, D]``.
+    """q/k: ``[B, Sq|Sk, Hq|Hkv, D]``; v: ``[B, Sk, Hkv, Dv]`` -> ``[B, Sq,
+    Hq, Dv]``.
 
     GQA handled by grouping; online softmax in fp32; output in q's dtype.
     """
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
     g = hq // hkv
     scale = 1.0 / math.sqrt(d)
 
@@ -48,7 +52,7 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     # [B, NQ, Hkv, G, bq, D] query blocks; [B, NK, Hkv, bk, D] key blocks.
     qb = q.reshape(b, nq, bq, hkv, g, d).permute(0, 1, 3, 4, 2, 5)
     kb = k.reshape(b, nk, bk, hkv, d).permute(0, 1, 3, 2, 4)
-    vb = v.reshape(b, nk, bk, hkv, d).permute(0, 1, 3, 2, 4)
+    vb = v.reshape(b, nk, bk, hkv, dv).permute(0, 1, 3, 2, 4)
 
     dev = q.device
     blocks = []  # a list, not slices of one buffer: q may be a DTensor
@@ -57,7 +61,7 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         m = torch.full((b, hkv, g, bq, 1), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, hkv, g, bq, 1), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, g, bq, d), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, bq, dv), dtype=torch.float32, device=dev)
         rows = iq * bq + torch.arange(bq, device=dev)
         for ik in range(nk):
             s = torch.einsum("bhgqd,bhkd->bhgqk", q32, kb[:, ik].float())
@@ -76,5 +80,5 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         blocks.append((acc / torch.clamp(l, min=1e-30)).to(q.dtype))
     # [B, NQ, Hkv, G, bq, D] -> [B, Sq, Hq, D]
     out = torch.stack(blocks, dim=1).permute(0, 1, 4, 2, 3, 5)
-    out = out.reshape(b, sq_p, hq, d)
+    out = out.reshape(b, sq_p, hq, dv)
     return out[:, :sq]

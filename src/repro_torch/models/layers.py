@@ -305,6 +305,137 @@ def cross_attention(p, cfg: ModelConfig, x, image_embeds):
 
 
 # --------------------------------------------------------------------- #
+# Multi-head latent attention (MLA, DeepSeek-V3; ``cfg.mla`` set).
+# --------------------------------------------------------------------- #
+def mla_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """No q LoRA: ``wq [d, H*(nope+rope)]``; ``w_kva [d, r+rope]`` (the
+    latent and the shared key part, ``kv_a_proj_with_mqa``); ``kv_norm
+    [r]``; ``w_kvb [r, H*(nope+v)]`` (per head its key part, then its
+    value); ``wo [H*v, d]``."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dt = _dtype(cfg.param_dtype)
+    return {
+        "wq": dense_init(gen, d, h * m.qk_head_dim, dt),
+        "w_kva": dense_init(gen, d, m.latent_dim, dt),
+        "kv_norm": torch.zeros((m.kv_lora_rank,), dtype=dt,
+                               device=gen.device),
+        "w_kvb": dense_init(gen, m.kv_lora_rank,
+                            h * (m.qk_nope_head_dim + m.v_head_dim), dt),
+        "wo": dense_init(gen, h * m.v_head_dim, d, dt),
+    }
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """The softmax scale: one over the root of the query-key head's width
+    (nope + rope), as ``modeling_deepseek.py`` without rope scaling."""
+    return 1.0 / math.sqrt(cfg.mla.qk_head_dim)
+
+
+def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """``modeling_deepseek.py``'s RoPE: the pairs ``(x0, x1), (x2, x3),
+    ...`` are first laid out as ``x0, x2, ..., x1, x3, ...``, then rotated
+    half against half (:func:`apply_rope`).  The output keeps that
+    layout, as the published code's does."""
+    d = x.shape[-1]
+    x = x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).reshape(x.shape)
+    return apply_rope(x, positions, theta)
+
+
+def mla_query(p, cfg: ModelConfig, x, positions):
+    """``x [B, S, d]`` -> ``(q_nope [B, S, H, nope], q_pe [B, S, H,
+    rope])``, ``q_pe`` roped."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, m.qk_head_dim)
+    q_nope, q_pe = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    return q_nope, apply_rope_pairs(q_pe, positions, cfg.rope_theta)
+
+
+def mla_latent(p, cfg: ModelConfig, x, positions):
+    """What a token leaves in the cache, ``[B, S, r + rope]``: its latent
+    ``c`` normed by ``kv_norm``, then its roped key part ``k_pe``, one for
+    all heads."""
+    m = cfg.mla
+    kva = x @ p["w_kva"]
+    c = rmsnorm(kva[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope_pairs(kva[..., None, m.kv_lora_rank:], positions,
+                            cfg.rope_theta)[..., 0, :]
+    return torch.cat([c, k_pe], -1)
+
+
+def _kvb(p, cfg: ModelConfig):
+    """``w_kvb`` as ``[r, H, nope + v]`` (a view)."""
+    return p["w_kvb"].view(cfg.mla.kv_lora_rank, cfg.num_heads, -1)
+
+
+def mla_attention_with_latent(p, cfg: ModelConfig, x, positions):
+    """Causal MLA over the whole sequence in the published (not absorbed)
+    form: each head's keys are ``[c W_UK ‖ k_pe]``, its values ``c W_UV``.
+    Returns ``(out [B, S, d], latent [B, S, r + rope])``."""
+    from repro_torch.models.chunked_attention import chunked_attention
+
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_pe = mla_query(p, cfg, x, positions)
+    lat = mla_latent(p, cfg, x, positions)
+    c, k_pe = lat.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    kv = (c @ p["w_kvb"]).reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    q = torch.cat([q_nope, q_pe], -1)
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(b, s, h, -1)], -1)
+    o = chunked_attention(q, k, v)  # [B, S, H, v], scale 1/sqrt(nope+rope)
+    return o.reshape(b, s, h * m.v_head_dim) @ p["wo"], lat
+
+
+def mla_attention(p, cfg: ModelConfig, x, positions):
+    """Training's MLA: :func:`mla_attention_with_latent` without its
+    latent."""
+    return mla_attention_with_latent(p, cfg, x, positions)[0]
+
+
+def mla_absorbed_query(p, cfg: ModelConfig, x, positions):
+    """Decode's query in the absorbed form: ``x [B, 1, d]`` -> ``[B, H, r +
+    rope]``, ``q_nope W_UK^T`` (``W_UK`` a view of ``w_kvb``) beside the
+    roped ``q_pe``: its dot product with a cached latent ``[c ‖ k_pe]`` is
+    the head's logit."""
+    m = cfg.mla
+    q_nope, q_pe = mla_query(p, cfg, x, positions)
+    w_uk = _kvb(p, cfg)[..., :m.qk_nope_head_dim]  # [r, H, nope]
+    q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0], w_uk)
+    return torch.cat([q_lat, q_pe[:, 0]], -1)
+
+
+def mla_absorbed_out(p, cfg: ModelConfig, o_lat):
+    """``o_lat [B, H, r]`` (the attention's sum of latents) -> ``[B, 1,
+    d]``: through ``W_UV`` (a view of ``w_kvb``), then ``wo``."""
+    m = cfg.mla
+    w_uv = _kvb(p, cfg)[..., m.qk_nope_head_dim:]  # [r, H, v]
+    o = torch.einsum("bhc,chv->bhv", o_lat, w_uv)
+    return o.reshape(o.shape[0], 1, -1) @ p["wo"]
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache_lat, position):
+    """Single-token absorbed MLA against a dense latent cache ``[B, Smax,
+    r + rope]``, written in place at ``position [B]``: ``(out [B, 1, d],
+    cache_lat)``.  Softmax in fp32 over the positions up to
+    ``position``."""
+    r = cfg.mla.kv_lora_rank
+    pos = position[:, None]
+    q = mla_absorbed_query(p, cfg, x, pos)  # [B, H, r + rope]
+    _write_at(cache_lat[:, :, None], mla_latent(p, cfg, x, pos)[:, :, None],
+              position)
+    logits = torch.einsum("bhc,bkc->bhk", q.float(),
+                          cache_lat.float()) * mla_scale(cfg)
+    valid = (torch.arange(cache_lat.shape[1], device=x.device)[None, :]
+             <= position[:, None].long())
+    w = torch.softmax(logits.masked_fill(~valid[:, None, :], -1e30), -1)
+    o = torch.einsum("bhk,bkc->bhc", w, cache_lat[..., :r].float())
+    return mla_absorbed_out(p, cfg, o.to(x.dtype)), cache_lat
+
+
+# --------------------------------------------------------------------- #
 # MLP (SwiGLU / GeGLU / GeLU).
 # --------------------------------------------------------------------- #
 def mlp_params(gen: torch.Generator, cfg: ModelConfig,

@@ -58,6 +58,7 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.telemetry.spans import clock
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
@@ -187,8 +188,8 @@ class LM:
                     for _ in range(self.n_groups)]
 
         if f in ("dense", "moe", "audio"):
-            p["layers"] = [B.dense_block_params(gen, cfg)
-                           for _ in range(cfg.num_layers)]
+            p["layers"] = [B.dense_block_params(gen, cfg, i)
+                           for i in range(cfg.num_layers)]
         elif f == "vlm":
             p["self_layers"] = groups(B.dense_block_params)
             p["cross_layers"] = [B.cross_block_params(gen, cfg)
@@ -421,13 +422,18 @@ class LM:
 
     @torch.no_grad()
     def prefill(self, params, batch, *, max_len: int | None = None,
-                cache=None):
+                cache=None, spans=None, moe_tally=None):
         """Process the prompt, returning ``(cache, last-position logits)``.
 
         batch: ``tokens [B, S]`` (audio ``[B, S, K]``), and for the vlm
         ``image_embeds [B, N, d]``.  The cache is laid out as
         ``cache_specs(B, max_len or S)``: ``cache``, zeroed, when given (the
-        dry run's sharded cache), else a new one.
+        dry run's sharded cache), else a new one.  MoE layers add to
+        ``moe_tally`` (see ``models.moe``).  An MLA model's cache is one
+        latent a token and layer (``{"layers": {"latent": [L, B, S, r +
+        rope]}}``); its layers record, with a span recorder ``spans``,
+        ``prefill.mla`` and then ``prefill.moe`` (``prefill.mlp`` for a dense
+        layer) on the host's clock.
         """
         cfg = self.cfg
         f = cfg.family
@@ -440,7 +446,8 @@ class LM:
             cache = self.init_cache(b, ml)
 
         def attn(lp, h, node, idx):
-            h, k, v = B.dense_block_prefill(lp, cfg, h, positions, ml)
+            h, k, v = B.dense_block_prefill(lp, cfg, h, positions, ml,
+                                            tally=moe_tally)
             _put(node, idx, {"k": k, "v": v})
             return h
 
@@ -449,7 +456,17 @@ class LM:
             _put(node, idx, st)
             return h
 
-        if f in ("dense", "moe", "audio"):
+        if f in ("dense", "moe", "audio") and B._is_mla(cfg):
+            for i, lp in enumerate(params["layers"]):
+                marks = [clock()] if spans is not None else None
+                x, st = B.mla_block_prefill(lp, cfg, x, positions, ml,
+                                            tally=moe_tally, marks=marks)
+                _put(cache["layers"], i, st)
+                if spans is not None:
+                    spans.add("prefill.mla", marks[0], marks[1])
+                    spans.add("prefill.moe" if "moe" in lp else "prefill.mlp",
+                              marks[1], marks[-1])
+        elif f in ("dense", "moe", "audio"):
             for i, lp in enumerate(params["layers"]):
                 x = attn(lp, x, cache["layers"], i)
         elif f == "vlm":
@@ -508,7 +525,11 @@ class LM:
             _put(node, idx, st)
             return h
 
-        if f in ("dense", "moe", "audio"):
+        if f in ("dense", "moe", "audio") and B._is_mla(cfg):
+            for i, lp in enumerate(params["layers"]):
+                x = B.mla_block_decode(lp, cfg, x, _at(cache["layers"], i),
+                                       lengths)[0]
+        elif f in ("dense", "moe", "audio"):
             for i, lp in enumerate(params["layers"]):
                 x = attn(lp, x, cache["layers"], (i,))
         elif f == "vlm":

@@ -15,6 +15,21 @@ counted with ``scatter_add_`` and stay on the device, the capacity is
 computed from shapes, and no boolean mask selects rows.  A CUDA graph can
 therefore capture a call.
 
+A second routing, DeepSeek-V3's (``cfg.moe.scoring == "sigmoid"``, the
+port's own: the reference has only the softmax): fp32 logits, ``s =
+sigmoid(logits)``, the top k of ``s + bias`` (a score-correction bias that
+chooses the experts and does not weight them), the gates ``s`` of the
+chosen renormalised by their sum plus 1e-20 and multiplied by
+``routed_scaling_factor``; no auxiliary loss.  A config with shared
+experts adds their SwiGLU (``"shared"``, width ``n_shared_experts *
+d_ff_expert``) on every token to the routed experts' sum.
+
+``moe_ffn``'s ``tally`` (an int64 device tensor ``[2]``) adds each call's
+routed (token, slot) pairs and the experts that got at least one row,
+by device operations, so a replayed CUDA graph keeps counting; its
+``marks`` (a list) gets the host's clock after the routing, after the
+routed experts and after the shared experts (the serving step's spans).
+
 Kept from the reference: the fp32 router (logits ``x.float() @
 router.float()``, as JAX promotes a compute-dtype router to fp32 there),
 the gates renormalised by ``max(sum, 1e-9)``, the switch aux loss on the
@@ -41,6 +56,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
+from repro_torch.telemetry.spans import clock
 
 
 def _constrain(x, *axes):
@@ -108,6 +124,12 @@ def moe_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
     if glu:
         p["w_gate"] = normal((e, d, ff), 1.0 / math.sqrt(d))
+    mo = cfg.moe
+    if getattr(mo, "scoring", "softmax") == "sigmoid":
+        # The score-correction bias, fp32 beside the router.
+        p["bias"] = normal((e,), 0.05).float()
+    if getattr(mo, "n_shared_experts", 0):
+        p["shared"] = L.mlp_params(gen, cfg, d_ff=mo.n_shared_experts * ff)
     return p
 
 
@@ -119,6 +141,8 @@ def moe_route(p, cfg: ModelConfig, x: torch.Tensor):
     e = mo.num_experts
     xf = x.reshape(-1, x.shape[-1])
     logits = xf.float() @ p["router"].float()  # [n, E]
+    if getattr(mo, "scoring", "softmax") == "sigmoid":
+        return _route_sigmoid(p, mo, logits)
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, mo.top_k, dim=-1)
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -127,6 +151,17 @@ def moe_route(p, cfg: ModelConfig, x: torch.Tensor):
                                            torch.ones_like(gates[:, 0]))
     aux = e * torch.sum(me * (first / xf.shape[0])) * mo.aux_loss_weight
     return gates, experts, aux
+
+
+def _route_sigmoid(p, mo, logits):
+    """DeepSeek-V3's ``noaux_tc`` routing with one group (see the module
+    docstring): ``(gates [n, k] fp32, experts [n, k], aux 0)``."""
+    s = torch.sigmoid(logits)
+    experts = torch.topk(s + p["bias"].float(), mo.top_k, dim=-1)[1]
+    gates = s.gather(1, experts)
+    gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-20)
+    gates = gates * mo.routed_scaling_factor
+    return gates, experts, logits.new_zeros(())
 
 
 def _counts(flat: torch.Tensor, e: int) -> torch.Tensor:
@@ -143,17 +178,28 @@ def _grouped(p, cfg: ModelConfig, xs, offs, experts=None):
     return run(xs, offs, p.get("w_gate"), p["w_up"], p["w_down"], act)
 
 
-def moe_ffn(p, cfg: ModelConfig, x, *, _experts=None):
+def moe_ffn(p, cfg: ModelConfig, x, *, _experts=None, tally=None,
+            marks=None):
     """Dispatch on ``cfg.moe_impl``: ``"ragged"`` (dropless, the default)
-    or ``"capacity"``.  ``x [B, S, d]`` -> ``(y [B, S, d], aux)``.
-    ``_experts`` replaces the grouped products (``chip_smoke.py`` holds the
-    kernels to the plain version through it)."""
+    or ``"capacity"``, then the shared experts where the config has them.
+    ``x [B, S, d]`` -> ``(y [B, S, d], aux)``.  ``_experts`` replaces the
+    grouped products (``chip_smoke.py`` holds the kernels to the plain
+    version through it); ``tally`` and ``marks`` as the module docstring
+    says (the ragged dispatch only)."""
     if cfg.moe_impl == "capacity":
-        return moe_ffn_capacity(p, cfg, x, _experts=_experts)
-    return moe_ffn_ragged(p, cfg, x, _experts=_experts)
+        y, aux = moe_ffn_capacity(p, cfg, x, _experts=_experts)
+    else:
+        y, aux = moe_ffn_ragged(p, cfg, x, _experts=_experts, tally=tally,
+                                marks=marks)
+    if "shared" in p:
+        y = y + L.mlp(p["shared"], cfg, x)
+        if marks is not None:
+            marks.append(clock())
+    return y, aux
 
 
-def moe_ffn_ragged(p, cfg: ModelConfig, x, *, _experts=None):
+def moe_ffn_ragged(p, cfg: ModelConfig, x, *, _experts=None, tally=None,
+                   marks=None):
     """Dropless top-k: every (token, slot) pair through its expert."""
     b, s, d = x.shape
     n, k, e = b * s, cfg.moe.top_k, cfg.moe.num_experts
@@ -162,12 +208,20 @@ def moe_ffn_ragged(p, cfg: ModelConfig, x, *, _experts=None):
     flat = experts.reshape(-1)  # [n*k]
     order = torch.argsort(flat, stable=True)
     xs = xf.index_select(0, order // k)  # each slot's token, sorted
-    offs = _counts(flat, e).cumsum(0, dtype=torch.int32)
+    counts = _counts(flat, e)
+    offs = counts.cumsum(0, dtype=torch.int32)
+    if tally is not None:
+        tally[0].add_(n * k)
+        tally[1].add_((counts > 0).sum())
+    if marks is not None:
+        marks.append(clock())
     ys = _grouped(p, cfg, xs, offs, _experts)  # [n*k, d]
     # Unsort (slot order[i] gets sorted row i), weight by the gates and sum
     # each token's k slots in fp32.
     ys = torch.empty_like(ys).index_copy(0, order, ys).reshape(n, k, d)
     y = torch.einsum("nkd,nk->nd", ys.float(), gates)
+    if marks is not None:
+        marks.append(clock())
     return y.reshape(b, s, d).to(x.dtype), aux
 
 

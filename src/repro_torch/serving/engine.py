@@ -11,7 +11,14 @@ PyTorch version on the CPU.
 Supports the dense and MoE families (per-layer KV; an MoE layer's FFN is
 ``repro_torch.models.moe.moe_ffn``, whose grouped products are the
 hand-written kernels of ``kernels/csrc/moe_experts_sm90.cu`` on the card
-in bf16/fp16, ``kernels/csrc/moe_experts.cu`` in fp32).
+in bf16/fp16, ``kernels/csrc/moe_experts.cu`` in fp32).  A model with
+multi-head latent attention (``cfg.mla``, DeepSeek-V3's) is served from a
+latent pool: a page holds one ``[page, 1, r + rope]`` latent array per
+layer and no V; prefill writes each token's latent, and the decode step
+runs the attention in absorbed form through
+:func:`repro_torch.kernels.ops.paged_mla_attention`
+(``kernels/csrc/paged_mla.cu``).  Allocation, prefix sharing, S->M and
+copy-on-write go through MIND as for K/V pages.
 Scheduler: admit-until-full continuous batching with page-granular
 allocation, exactly as the reference schedules.  The engine runs on CUDA
 unless the caller passes ``device="cpu"``.
@@ -37,12 +44,22 @@ id, with ``prefill.model``, ``prefill.pages`` and ``prefill.first_token``),
 call, holding ``decode.replay`` — the copies into the graph's inputs and
 the replay — or ``decode.capture``, or on the eager path
 ``decode.embed``, per layer ``decode.attn`` with ``decode.paged`` around
-the paged kernel and ``decode.ffn``, then ``decode.head``),
+the paged kernel and ``decode.ffn`` (an MoE layer's holding
+``decode.router``, ``decode.experts`` and, with shared experts,
+``decode.shared``), then ``decode.head``),
 ``decode.sync`` (the host's read of the argmax) and ``retire``; and each
 request carries its :class:`~repro_torch.telemetry.spans.Stamps`.  The
 counters ``decode.graph_capture``, ``decode.graph_replay`` and
 ``decode.eager`` count the steps by path.  On the card the decode spans
-time the host's enqueue, not the kernels.
+time the host's enqueue, not the kernels.  An MLA model's
+``prefill.model`` holds per layer ``prefill.mla`` and ``prefill.moe`` (or
+``prefill.mlp``).
+
+An MoE model's server keeps on the device, whatever the path, the counts
+``moe.slots`` (routed (token, slot) pairs) and ``moe.experts_touched``
+(experts given at least one row, summed over the MoE calls), for decode
+and prefill apart: device tensors that each step adds to, so a replayed
+graph counts too.  ``moe_counters()`` reads them on the host.
 """
 
 from __future__ import annotations
@@ -98,6 +115,7 @@ class PagedServer:
         if cfg.family not in ("dense", "moe"):
             raise ValueError("the paged serving path takes the per-layer-KV "
                              "families (dense, moe)")
+        self.mla = getattr(cfg, "mla", None)
         self.device = resolve_device(device, "PagedServer")
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the server "
@@ -115,13 +133,19 @@ class PagedServer:
             num_layers=cfg.num_layers,
             num_pages=num_pages,
             page_tokens=page_tokens,
-            num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.resolved_head_dim,
+            num_kv_heads=1 if self.mla else cfg.num_kv_heads,
+            head_dim=(self.mla.latent_dim if self.mla
+                      else cfg.resolved_head_dim),
             dtype=L._dtype(cfg.compute_dtype),
             num_replicas=num_replicas,
             device=self.device,
             spans=spans,
+            latent=self.mla is not None,
         )
+        # moe.slots, moe.experts_touched: decode's, then prefill's.
+        self._moe_tally = (torch.zeros(4, dtype=torch.int64,
+                                       device=self.device)
+                           if cfg.moe is not None else None)
         self.queue: list[Request] = []
         self.active: list[Request] = []
         self.finished: list[Request] = []
@@ -129,6 +153,18 @@ class PagedServer:
         self._graphs: dict[tuple[int, int], _Graph] = {}  # by (b, maxp)
         self._graph_pool = None  # one memory pool for every graph
         self.graph_stats = {"captures": 0, "replays": 0, "eager": 0}
+
+    def moe_counters(self) -> dict:
+        """The MoE counters so far (a read of the device), ``{}`` for a
+        model without MoE: ``decode.moe.slots``,
+        ``decode.moe.experts_touched``, ``prefill.moe.slots`` and
+        ``prefill.moe.experts_touched``."""
+        if self._moe_tally is None:
+            return {}
+        v = self._moe_tally.tolist()
+        return {"decode.moe.slots": v[0], "decode.moe.experts_touched": v[1],
+                "prefill.moe.slots": v[2],
+                "prefill.moe.experts_touched": v[3]}
 
     def set_spans(self, spans) -> None:
         """Attach a span recorder (or ``None``) to the server and its
@@ -164,10 +200,18 @@ class PagedServer:
             sp.begin("prefill.model")
         s = len(req.prompt)
         tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
-        cache, logits = self.model.prefill(self.params, {"tokens": tokens})
-        # cache["layers"]: k/v [L, 1, S, Hkv, hd]
-        k = cache["layers"]["k"][:, 0]  # [L, S, H, hd]
-        v = cache["layers"]["v"][:, 0]
+        tally = self._moe_tally
+        cache, logits = self.model.prefill(
+            self.params, {"tokens": tokens}, spans=sp,
+            moe_tally=None if tally is None else tally[2:])
+        if self.mla:
+            # cache["layers"]["latent"]: [L, 1, S, r + rope]
+            k = cache["layers"]["latent"][:, 0, :, None]  # [L, S, 1, r+rope]
+            v = None
+        else:
+            # cache["layers"]: k/v [L, 1, S, Hkv, hd]
+            k = cache["layers"]["k"][:, 0]  # [L, S, H, hd]
+            v = cache["layers"]["v"][:, 0]
         if sp is not None:
             sp.begin("prefill.pages", sp.end())
         pt = self.page_tokens
@@ -185,7 +229,7 @@ class PagedServer:
                 # Fresh page: initial population (pre-population, §4.4).
                 pid = self.pool.write_access(pid, req.session, populate=True)
                 self.pool.write_tokens(pid, 0, k[:, start:end],
-                                       v[:, start:end])
+                                       None if v is None else v[:, start:end])
             else:
                 self.pool.read_access(pid, req.session)
             req.pages.append(pid)
@@ -270,6 +314,8 @@ class PagedServer:
         its embedding, layer and head spans in ``sp`` when given."""
         cfg = self.cfg
         model = self.model
+        mla = self.mla
+        tally = None if self._moe_tally is None else self._moe_tally[:2]
         if sp is not None:
             marks = [clock()]
         params = model._cast(params)
@@ -283,45 +329,70 @@ class PagedServer:
         b = x.shape[0]
         if sp is not None:
             marks.append(clock())
+            layers = []  # per layer: its clock reads, the FFN's inner ones
         for i, lp in enumerate(params["layers"]):
-            kp, vp = k_pool[i], v_pool[i]  # [P, page, H, hd], contiguous
+            if sp is not None:
+                lm, inner = [clock()], []
             hn = L.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k, v = L._project_qkv(lp["attn"], cfg, hn)
-            q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
-            k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
-            # Write the new token's KV into its page slot.
-            kp[pids, offset] = k[:, 0]
-            vp[pids, offset] = v[:, 0]
+            if mla:
+                kp = k_pool[i]  # [P, page, 1, r + rope], contiguous
+                q = L.mla_absorbed_query(lp["attn"], cfg, hn,
+                                         positions[:, None])
+                kp[pids, offset] = L.mla_latent(lp["attn"], cfg, hn,
+                                                positions[:, None])
+                if sp is not None:
+                    lm.append(clock())
+                o = K.paged_mla_attention(
+                    q, kp.view(kp.shape[0], kp.shape[1], -1), block_tables,
+                    seq_lens, dv=mla.kv_lora_rank, scale=L.mla_scale(cfg))
+                if sp is not None:
+                    lm.append(clock())
+                x = x + L.mla_absorbed_out(lp["attn"], cfg, o)
+            else:
+                kp, vp = k_pool[i], v_pool[i]  # [P, page, H, hd], contiguous
+                q, k, v = L._project_qkv(lp["attn"], cfg, hn)
+                q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
+                k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
+                # Write the new token's KV into its page slot.
+                kp[pids, offset] = k[:, 0]
+                vp[pids, offset] = v[:, 0]
+                if sp is not None:
+                    lm.append(clock())
+                o = K.paged_attention(q[:, 0], kp, vp, block_tables,
+                                      seq_lens)  # [B, Hq, hd]
+                if sp is not None:
+                    lm.append(clock())
+                x = x + L._out_proj(lp["attn"], o.reshape(b, 1, -1))
             if sp is not None:
-                marks.append(clock())
-            o = K.paged_attention(q[:, 0], kp, vp, block_tables,
-                                  seq_lens)  # [B, Hq, hd]
-            if sp is not None:
-                marks.append(clock())
-            x = x + L._out_proj(lp["attn"], o.reshape(b, 1, -1))
-            if sp is not None:
-                marks.append(clock())
+                lm.append(clock())
             hn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + B.dense_block_ffn(lp, cfg, hn)  # MLP or MoE
+            x = x + B.dense_block_ffn(lp, cfg, hn, tally=tally,
+                                      marks=None if sp is None else inner)
             if sp is not None:
-                marks.append(clock())
+                lm.append(clock())
+                layers.append((lm, inner))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = model._logits(params, x[:, 0])
         if sp is not None:
             # The call's spans are recorded after its last launch, from
-            # the clock reads kept in `marks`, so that no recorder call
-            # runs between launches: the embedding's start and end; per
-            # layer the paged kernel's start and end, the attention
-            # half's end and the FFN's end (the next layer's start); the
-            # head's end.
+            # the clock reads kept in `marks` and `layers`, so that no
+            # recorder call runs between launches: the embedding's start
+            # and end; per layer its start, the paged kernel's start and
+            # end, the attention half's end, the FFN's end, and inside an
+            # MoE FFN the routing's, the experts' and the shared experts'
+            # ends; the head's end.
             marks.append(clock())
             sp.add("decode.embed", marks[0], marks[1])
-            for j in range(1, len(marks) - 2, 4):
-                t0, p0, p1, t1, t2 = marks[j:j + 5]
+            for (t0, p0, p1, t1, t2), inner in layers:
                 sp.add("decode.attn", t0, t1)
                 sp.add("decode.paged", p0, p1)
                 sp.add("decode.ffn", t1, t2)
-            sp.add("decode.head", marks[-2], marks[-1])
+                for name, a, z in zip(("decode.router", "decode.experts",
+                                       "decode.shared"), [t1] + inner,
+                                      inner):
+                    sp.add(name, a, z)
+            sp.add("decode.head", layers[-1][0][-1] if layers else marks[1],
+                   marks[-1])
         return logits, k_pool, v_pool
 
     # ------------------------------------------------------------------ #

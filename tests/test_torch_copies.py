@@ -134,7 +134,11 @@ def test_every_port_module_is_copied_trimmed_or_ported():
               # hlo_analysis.py's counterpart, under its own name.
               "distributed/cost_analysis.py",
               # The port's own: host-clock spans of its program.
-              "telemetry/spans.py"}
+              "telemetry/spans.py",
+              # The port's own: latent attention's config (a subclass of
+              # the copied base), the model that takes it, its kernel.
+              "configs/mla.py", "configs/moonlight_16b_a3b.py",
+              "kernels/paged_mla.py"}
     have = {str(p.relative_to(ROOT / "repro_torch"))
             for p in (ROOT / "repro_torch").rglob("*.py")}
     assert have == set(COPIES) | set(TRIMMED) | ported

@@ -281,10 +281,15 @@ def test_lane_replay_clamps_like_xla():
 def test_wrappers_count_no_launch_on_cpu():
     P.reset_launches()
     _check_translate(np.array([1 << 40], np.int64), _toy_translate_table())
+    P.paged_mla_attention(torch.zeros((1, 2, 8)), torch.zeros((2, 4, 8)),
+                          torch.zeros((1, 2), dtype=torch.int32),
+                          torch.ones(1, dtype=torch.int32), dv=4, scale=1.0)
     assert P.LAUNCHES == {"protect_check": 0, "translate_lookup": 0,
                           "lane_replay": 0, "paged_attention": 0,
                           "msi_transition": 0, "flash_attention": 0,
-                          "moe_experts": 0, "moe_experts_backward": 0}
+                          "moe_experts": 0, "moe_experts_backward": 0,
+                          "paged_mla_attention": 0}
+    assert P.MLA_ROUTES == {"mma": 0, "simt": 0}
 
 
 def test_wrappers_validate_inputs():
