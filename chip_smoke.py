@@ -23,7 +23,9 @@ exits nonzero):
               of 500-token prompts sharing a 256-token prefix, two of them
               identical (a copy-on-write), 64 tokens each, max_batch 8, a
               4,096-page pool of 16 tokens.  Its paged_attention launch
-              count is the one reported; its widest decode call is
+              count is the one reported, and its flash_attention's (every
+              layer of every prefill, as in serve_moe and serve_mla, on
+              the wgmma route); its widest decode call is
               recorded for phase 4.  A traced window of decode steps
               names the device time of both paged kernels (split and
               combine).
@@ -127,6 +129,15 @@ exits nonzero):
               scaled_dot_product_attention; bf16/fp16 must take the
               tensor-core route (ops.FLASH_ROUTES).  The two kernels'
               launch counts are this phase's.
+   prefill  — the served prefill's causal self-attention as the model
+              calls the flash kernel (the [B, S, H, D] tensors in place):
+              Moonlight's 16 heads of 192/128 at doc-qa's shortest, median
+              and longest prompts (S 1,359, 2,001, 4,155) and qwen3-4b's
+              32/8 heads of 128 at S 512 and 1,024, bf16, held to the plain
+              version (2e-2), on the wgmma route, timed beside the bound,
+              the plain chunked_attention the prefill ran before and
+              scaled_dot_product_attention.  Alone:
+              python3 chip_smoke.py --prefill
 5. paged_vs_dense — qwen3-4b at full width in fp32, then moonshot at full
               width in fp32 cut to 4 layers (all 48 would be 112 GB), then
               moonlight-16b-a3b cut to 4 layers in fp32: one paged decode
@@ -447,7 +458,8 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/directory_msi.cu",
         replaces="src/repro/kernels/directory_msi.py:82"),
     # The reported case (bf16) runs the tensor-core kernel; fp32 and other
-    # head widths run the SIMT one (ops._flash_route).
+    # head widths run the SIMT one (ops._flash_route).  The served prefill
+    # runs it (phase prefill times it at the cells' shapes).
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention.py:25"),
@@ -483,8 +495,10 @@ NO_TPU_KERNEL = ("moe_experts", "moe_experts_backward",
 # holds each sequence to 3 x 2^-8 of its own, and shows a page skipped at
 # a CTA boundary of a 4,155-token sequence misses it 3.7 times over).
 MLA_BAR = 2.0 ** -7
-# Kernels on no path of the system: the JAX package reaches them through
-# its kernel API alone, so their launches are those of phase kernel_bench.
+# Kernels that the JAX package reaches through its kernel API alone;
+# phase kernel_bench must launch each.  msi_transition is on no path of
+# the system, so its launches are that phase's; flash_attention's are the
+# serve run's prefills (every layer of each).
 BENCH_KERNELS = ("msi_transition", "flash_attention")
 
 # MSI at MIND's directory width: the rack's 30,000 directory entries, all
@@ -499,6 +513,11 @@ FLASH = {"qwen3-4b": dict(heads=32, kv_heads=8, head_dim=128),
          "gemma-2b": dict(heads=8, kv_heads=1, head_dim=256)}
 FLASH_S = 4096
 FLASH_LOGIT_STD = 3.0
+# The served prefill's attention (phase prefill): (config, heads, KV
+# heads, Dk, Dv, prompt lengths).  Moonlight's latent attention at doc-qa's
+# shortest, median and longest prompts; qwen3-4b at shared-prefix's.
+PREFILL_CASES = (("moonlight-16b-a3b", 16, 16, 192, 128, (1359, 2001, 4155)),
+                 ("qwen3-4b", 32, 8, 128, 128, (512, 1024)))
 # Flash cases: (heads of, causal, dtype, B, S, block).
 FLASH_CASES = (
     [("qwen3-4b", True, "bfloat16", 1, FLASH_S, 128),
@@ -1181,6 +1200,7 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         M.moe_ffn = inner_moe
         del srv._prefill  # back to the method (no reference cycle)
     launches = dict(ops.LAUNCHES)
+    flash_routes = dict(ops.FLASH_ROUTES)
     moe_routes = dict(ops.MOE_ROUTES)
     mla_routes = dict(ops.MLA_ROUTES)
     counters = srv.moe_counters()
@@ -1244,6 +1264,14 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
             raise AssertionError(f"MoE counters {counters}, expected "
                                  f"{want} and 0 < experts touched <= "
                                  f"{cfg.moe.num_experts * moe_calls}")
+    # Every layer of every prefill attends on the card's flash route, one
+    # wgmma launch each (bf16 at a built width: layers.prefill_route).
+    flash = prefill["calls"] * cfg.num_layers
+    if device.type == "cuda" and not (
+            launches["flash_attention"] == flash_routes["wgmma"] == flash):
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times "
+                             f"({flash_routes}), expected {flash} on wgmma")
     decode_s = wall - prefill["s"]
     peak = (torch.cuda.max_memory_allocated(device) / 1e9
             if device.type == "cuda" else None)
@@ -1266,7 +1294,8 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         tokens_per_s=stats["tokens"] / wall,
         decode_tokens_per_s=stats["tokens"] / decode_s,
         stats=stats, pages_in_use=in_use, launches=launches,
-        peak_mem_gb=peak, decode_profile=profile)
+        flash_routes=flash_routes, peak_mem_gb=peak,
+        decode_profile=profile)
     if getattr(cfg, "mla", None):
         line.update(latent_dim=cfg.mla.latent_dim, mla_routes=mla_routes,
                     first_k_dense=cfg.first_k_dense)
@@ -2149,15 +2178,17 @@ def msi_bound(s: int, b: int):
     return nbytes, bound_ms(nbytes, 20 * b)
 
 
-def flash_bound(b, h, hkv, s, d, causal, dtype):
-    """q, k, v read once and out written once; 4*S*S*D operations per
-    head (halved by the causal mask) at the tensor-core peak in bf16/fp16
-    and the non-tensor fp32 peak in fp32."""
+def flash_bound(b, h, hkv, s, d, causal, dtype, dv=None):
+    """q, k, v read once and out written once; 2*S*S*(D + Dv) operations
+    per head (Q K^T and P V; halved by the causal mask) at the tensor-core
+    peak in bf16/fp16 and the non-tensor fp32 peak in fp32.  ``dv``
+    defaults to ``d``."""
     import torch
 
+    dv = d if dv is None else dv
     el = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * h + 2 * hkv) * b * s * d * el
-    nops = 4 * b * h * s * s * d // (2 if causal else 1)
+    nbytes = ((h + hkv) * d + (h + hkv) * dv) * b * s * el
+    nops = 2 * b * h * s * s * (d + dv) // (2 if causal else 1)
     rate = ALU_OPS_S if dtype == torch.float32 else TENSOR_OPS_S
     return nbytes, nops, bound_ms(nbytes, nops, rate)
 
@@ -2331,6 +2362,74 @@ def phase_kernel_bench(device, scale: float = 1.0):
             tflops=nops / ms / 1e9)
         del q, k, v
     return dict(bench=cells, msi_transition=msi, flash_attention=flash)
+
+
+def phase_prefill(device, scale: float = 1.0):
+    """Phase prefill: the served prefill's causal self-attention as the
+    model calls it (``layers._flash_prefill``: ``ops.flash_attention`` on
+    the model's ``[B, S, H, D]`` tensors in place, MLA's values a strided
+    slice of its K/V projection) at PREFILL_CASES in bf16, on logits of std
+    3: held to ``flash_attention_plain`` (2e-2; one block of the whole S),
+    on the wgmma route, timed warm beside its bound (``flash_bound``), the
+    plain ``chunked_attention`` it replaced on the card and
+    ``scaled_dot_product_attention`` on the same views (the library's
+    yardstick).  With the flash kernels' ptxas report."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.chunked_attention import chunked_attention
+
+    rng = np.random.default_rng(SEED)
+    dt = torch.bfloat16
+    rows = {}
+    for arch, h, hkv, dk, dv, lengths in PREFILL_CASES:
+        for s in lengths:
+            s = max(1, int(s * scale))
+            mla = dv != dk  # v a slice of [nope ‖ v] per head, as MLA's
+            q, k, kv = (torch.from_numpy(rng.standard_normal(shape) * sc).to(
+                device=device, dtype=dt) for shape, sc in (
+                    ((1, s, h, dk), FLASH_LOGIT_STD), ((1, s, hkv, dk), 1.0),
+                    ((1, s, hkv, 2 * dv if mla else dv), 1.0)))
+            v = kv[..., dv:] if mla else kv
+            bhsd = [t.transpose(1, 2) for t in (q, k, v)]
+            name = f"{arch} S{s}"
+            want = flash_attention_plain(*bhsd, causal=True, block_q=s,
+                                         block_k=s)
+            routes = dict(ops.FLASH_ROUTES)
+            err = held(f"flash_attention ({name})",
+                       L._flash_prefill(q, k, v).transpose(1, 2), want, 2e-2)
+            route = [r for r in routes if ops.FLASH_ROUTES[r] > routes[r]]
+            if device.type == "cuda" and route != ["wgmma"]:
+                raise AssertionError(f"flash_attention ({name}) took {route}")
+            lib_err = held(f"scaled_dot_product_attention ({name}, "
+                           f"yardstick)", F.scaled_dot_product_attention(
+                               *bhsd, is_causal=True, enable_gqa=True),
+                           want, 2e-2)
+            out_rms = float(want.float().pow(2).mean().sqrt())
+            del want
+            nbytes, nops, bound = flash_bound(1, h, hkv, s, dk, True, dt,
+                                              dv=dv)
+            ms = time_ms(lambda: L._flash_prefill(q, k, v), 20, device)
+            rows[name] = dict(
+                max_abs_err=err, tolerance=2e-2, route=route,
+                shape=dict(B=1, H=h, Hkv=hkv, S=s, Dk=dk, Dv=dv,
+                           causal=True, dtype="bfloat16"),
+                ms=ms,
+                plain_ms=time_ms(lambda: chunked_attention(q, k, v), 3,
+                                 device),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    *bhsd, is_causal=True, enable_gqa=True), 20, device),
+                library_err=lib_err, out_rms=out_rms, bytes=nbytes,
+                flops=nops, bound=bound, share_of_bound=bound[0] / ms,
+                tflops=nops / ms / 1e9)
+            del q, k, kv, v, bhsd
+    log = ops.BUILD_DIR / "flash_attention_sm90.log"
+    ptxas = ptxas_kernels(log.read_text()) if log.exists() else None
+    return dict(cases=rows, ptxas=ptxas)
 
 
 def phase_paged_vs_dense(device, scale: float = 1.0, cell: str = "serve"):
@@ -3935,6 +4034,14 @@ def main() -> int:
         free_device(device)
         emit({"phase": "mla_kernel", **mla_kernel_row(device, recorded_mla)})
         return 0
+    if sys.argv[1:2] == ["--prefill"]:
+        from repro_torch.kernels import ops
+
+        emit({"phase": "env", "device": torch.cuda.get_device_name(0),
+              "nvidia_smi": nvidia_smi_line()})
+        ops.load_library()
+        emit({"phase": "prefill", **phase_prefill(device)})
+        return 0
     if sys.argv[1:2] == ["--moe-launches"]:
         emit({"nvidia_smi": nvidia_smi_line(),
               **moe_launch_times(device)})
@@ -4039,6 +4146,8 @@ def main() -> int:
     emit({"phase": "kernel_bench", "seconds": time.perf_counter() - t,
           "launches": bench_launches, "flash_routes": dict(ops.FLASH_ROUTES),
           **bench})
+    emit({"phase": "prefill", **phase_prefill(device)})
+    free_device(device)
     kern["msi_transition"] = bench["msi_transition"]
     top = "qwen3-4b causal bfloat16"
     kern["flash_attention"] = dict(
@@ -4078,11 +4187,13 @@ def main() -> int:
               "seconds": time.perf_counter() - t, **out})
 
     # Launches on each kernel's path: the main replay cell, phase
-    # kernel_bench, the serve run (paged_attention; serve_moe's beside it),
-    # the serve_moe run (moe_experts), train (d) (moe_experts_backward)
-    # and the serve_mla run (paged_mla_attention).
+    # kernel_bench (msi_transition), the serve run (paged_attention, its
+    # decode; flash_attention, its prefills; serve_moe's paged_attention
+    # beside it), the serve_moe run (moe_experts), train (d)
+    # (moe_experts_backward) and the serve_mla run (paged_mla_attention).
     launches = {**main_run["launches"], **bench_launches,
                 "paged_attention": serve["launches"]["paged_attention"],
+                "flash_attention": serve["launches"]["flash_attention"],
                 "paged_mla_attention":
                     serve_mla["launches"]["paged_mla_attention"],
                 "moe_experts": serve_moe["launches"]["moe_experts"],

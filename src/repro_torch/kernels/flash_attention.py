@@ -5,20 +5,23 @@ running max ``m``, denominator ``l`` and output accumulator ``acc`` of each
 query row carried in fp32; key blocks strictly above the causal diagonal
 are skipped.  The JAX package runs this as the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::_flash_kernel``; on Hopper it is the
-hand-written CUDA kernel ``csrc/flash_attention.cu`` (launched by
-:func:`repro_torch.kernels.ops.flash_attention`).  This module holds its
+hand-written CUDA kernels ``csrc/flash_attention_sm90.cu`` (tensor cores)
+and ``csrc/flash_attention.cu`` (launched by
+:func:`repro_torch.kernels.ops.flash_attention`).  This module holds their
 plain PyTorch version, :func:`flash_attention_plain`: the same blocked
 recurrence in torch ops, every query block at once for each key block.  The
-CPU runs and the tests use it; on the card it is the yardstick the kernel
-is held to.  Neither the JAX models nor the port's run it: their prefill
-uses ``chunked_attention``.
+CPU runs and the tests use it; on the card it is the yardstick the kernels
+are held to.  The JAX models' prefill, and the port's everywhere else, use
+``chunked_attention``; the port's served prefill in bf16/fp16 on the card
+runs the tensor-core kernel (``repro_torch.models.layers.prefill_route``).
 
 Layouts (the JAX package's):
-  q:    [B, H, S, D]
-  k, v: [B, Hkv, S, D], H a multiple of Hkv; query head h reads KV head
-        h // (H / Hkv), which is what the reference's ``jnp.repeat`` of the
-        KV heads gives
-  out:  q's layout and dtype
+  q:    [B, H, S, Dk]
+  k, v: [B, Hkv, S, Dk] and [B, Hkv, S, Dv], Dv <= Dk (latent attention's
+        values are narrower than its query-key heads), H a multiple of
+        Hkv; query head h reads KV head h // (H / Hkv), which is what the
+        reference's ``jnp.repeat`` of the KV heads gives
+  out:  [B, H, S, Dv] in q's dtype
 
 Semantics kept from the TPU kernel: logits are ``(q . k) * scale`` in fp32;
 with ``causal`` a key after its query is masked to ``-1e30`` (not -inf),
@@ -41,7 +44,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Blocked attention (see the module docstring).  ``block_q`` and
     ``block_k`` are the blocks themselves: S must divide by both."""
     b, h, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, dv = k.shape[1], v.shape[-1]
     g = h // hkv
     eff_scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     # Query head h = kv*G + j reads KV head kv: a view, no repeated copy.
@@ -51,7 +54,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     m = torch.full((b, hkv, g, s, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, s, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hkv, g, s, d), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, s, dv), dtype=torch.float32, device=dev)
     for ik in range(s // block_k):
         c0 = ik * block_k
         # The query blocks that run this key block are a suffix of rows.
@@ -71,4 +74,4 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc[..., r0:, :] = acc[..., r0:, :] * alpha + p @ vb
         m[..., r0:, :] = m_new
     out = acc / torch.clamp(l, min=1e-30)
-    return out.to(q.dtype).reshape(b, h, s, d)
+    return out.to(q.dtype).reshape(b, h, s, dv)

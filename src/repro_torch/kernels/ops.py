@@ -195,8 +195,10 @@ def _declare(lib) -> None:
     # dtype, q k v out, B H Hkv S D, scale, causal, stream
     lib.flash_attention_launch.argtypes = ([i] + [p] * 4 + [i] * 5
                                            + [ctypes.c_float, i, p])
+    # dtype, q k v out, B H Hkv S Dk Dv, 12 strides, scale, causal, stream
     lib.flash_attention_sm90_launch.argtypes = (
-        lib.flash_attention_launch.argtypes)
+        [i] + [p] * 4 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_float, i, p])
     # dtype, route, a b b2 offs out save save2, M K N E mode, stream
     lib.moe_experts_launch.argtypes = [i, i] + [p] * 7 + [i] * 5 + [p]
     # dtype, route, dy w_down offs pa pb da db h, M d ff E mode, stream
@@ -244,7 +246,9 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _expect(t, name, dtype, ndim, device):
+def _expect(t, name, dtype, ndim, device, strided: bool = False):
+    """Type, dtype, rank and device of an input; contiguity, or with
+    ``strided`` a unit stride along the last dim alone."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
     if t.dtype != dtype:
@@ -253,7 +257,9 @@ def _expect(t, name, dtype, ndim, device):
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
+    if strided and t.stride(-1) != 1:
+        raise ValueError(f"{name} must have unit stride along its last dim")
+    if not strided and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -795,47 +801,76 @@ def msi_transition_vectorized(state: torch.Tensor, sharers: torch.Tensor,
 # --------------------------------------------------------------------- #
 # Blocked (flash) attention.
 # --------------------------------------------------------------------- #
-_WGMMA_D = (64, 128, 256)
+# (Dk, Dv) of the wgmma builds: Dk == Dv, and latent attention's 192-wide
+# query-key heads (nope 128 + rope 64) over 128-wide values.
+_WGMMA_WIDTHS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
 
-def _flash_route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+def _flash_route(dtype: torch.dtype, dk: int, dv: int | None = None,
+                 aligned: bool = True) -> str:
     """Which kernel computes ``flash_attention`` on the card: ``"wgmma"``
     (``csrc/flash_attention_sm90.cu``, tensor cores, TMA loads) for
-    bf16/fp16 at D 64, 128 or 256 with 16-byte aligned tensors (TMA's
-    rule), else ``"simt"`` (``csrc/flash_attention.cu``, fp32 FMAs)."""
-    if dtype in (torch.bfloat16, torch.float16) and d in _WGMMA_D and aligned:
+    bf16/fp16 at (Dk, Dv) of (64, 64), (128, 128), (256, 256) or (192,
+    128) (``dv`` defaults to ``dk``) with tensors TMA can address (16-byte
+    aligned pointers and strides: ``aligned``), else ``"simt"``
+    (``csrc/flash_attention.cu``, fp32 FMAs, Dv == Dk only)."""
+    dv = dk if dv is None else dv
+    if (dtype in (torch.bfloat16, torch.float16)
+            and (dk, dv) in _WGMMA_WIDTHS and aligned):
         return "wgmma"
     return "simt"
+
+
+def _bhs_strides(t: torch.Tensor) -> list:
+    """``t``'s element strides along B, heads and S; a dim of extent 1
+    (whose index is always 0) gets its packed stride."""
+    b, h, s, d = t.shape
+    packed = (h * s * d, s * d, d)
+    return [t.stride(i) if t.shape[i] > 1 else packed[i] for i in range(3)]
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether a 16-bit ``t`` is TMA-addressable: 16-byte aligned, its
+    strides along B, heads and S multiples of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st in _bhs_strides(t))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     block_q: int = 128, block_k: int = 128):
-    """Blocked attention over ``q [B, H, S, D]`` and ``k``, ``v`` ``[B,
-    Hkv, S, D]`` in q's dtype (float32, bfloat16 or float16, ``D <= 256``;
-    H a multiple of Hkv, query head h reading KV head ``h // (H/Hkv)``).
-    Returns ``[B, H, S, D]`` in q's dtype.  S must divide by
-    ``min(block_q, S)`` and ``min(block_k, S)``, the reference's blocks;
-    the scale is ``1/sqrt(D)`` unless given."""
+    """Blocked attention over ``q [B, H, S, Dk]``, ``k [B, Hkv, S, Dk]``
+    and ``v [B, Hkv, S, Dv]`` (``Dv <= Dk <= 256``) in q's dtype (float32,
+    bfloat16 or float16; H a multiple of Hkv, query head h reading KV head
+    ``h // (H/Hkv)``).  Returns ``[B, H, S, Dv]`` in q's dtype.  S must
+    divide by ``min(block_q, S)`` and ``min(block_k, S)``, the reference's
+    blocks (blocks of S or more take any S; the card's kernels tile on
+    their own); the scale is ``1/sqrt(Dk)`` unless given.
+
+    Each input may be a strided view with unit stride along its width
+    (the model's ``[B, S, H, D]`` tensors transposed).  The wgmma route
+    reads them in place and writes the output in q's memory order (a
+    ``[B, S, H, Dv]`` buffer when q's heads lie inside its positions); the
+    SIMT kernel takes contiguous copies and Dv == Dk only."""
     dev = q.device
     if not isinstance(q, torch.Tensor) or q.dtype not in _PA_DTYPES:
         raise TypeError(f"q must be a float32/bfloat16/float16 tensor, got "
                         f"{getattr(q, 'dtype', type(q))}")
-    _expect(q, "q", q.dtype, 4, dev)
-    _expect(k, "k", q.dtype, 4, dev)
-    _expect(v, "v", q.dtype, 4, dev)
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _expect(t, name, q.dtype, 4, dev, strided=True)
     b, h, s, d = q.shape
-    hkv = k.shape[1]
+    hkv, dv = k.shape[1], v.shape[3]
     # The reference asserts B and D equal and H a multiple of Hkv; it does
     # not check K/V's S against q's, which its blocks would read past.
-    if (v.shape != k.shape or k.shape[0] != b or k.shape[2] != s
-            or k.shape[3] != d or hkv == 0 or h % hkv):
+    if (v.shape[:3] != k.shape[:3] or k.shape[0] != b or k.shape[2] != s
+            or k.shape[3] != d or hkv == 0 or h % hkv or dv > d):
         raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} (need k == "
-                         f"v [B, Hkv, S, D] with H a multiple of Hkv)")
-    if not 0 < d <= _PA_MAX_D or s == 0:
-        raise ValueError(f"flash_attention needs 0 < D <= {_PA_MAX_D} and "
-                         f"S > 0, got D={d}, S={s}")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (need k [B, "
+                         f"Hkv, S, Dk] and v [B, Hkv, S, Dv], Dv <= Dk, with "
+                         f"H a multiple of Hkv)")
+    if not 0 < d <= _PA_MAX_D or dv == 0 or s == 0:
+        raise ValueError(f"flash_attention needs 0 < Dv <= Dk <= {_PA_MAX_D}"
+                         f" and S > 0, got Dk={d}, Dv={dv}, S={s}")
     if block_q <= 0 or block_k <= 0:
         raise ValueError(f"block sizes must be positive, got {block_q}, "
                          f"{block_k}")
@@ -849,20 +884,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, scale=eff_scale,
                                      block_q=bq, block_k=bk)
+    route = _flash_route(q.dtype, d, dv,
+                         all(_tma_ready(t) for t in (q, k, v)))
+    if route == "simt" and dv != d:
+        raise ValueError(f"flash_attention: the SIMT kernel takes Dv == Dk "
+                         f"only, got Dk={d}, Dv={dv} in {q.dtype}")
+    if route == "wgmma" and q.stride(1) < q.stride(2):
+        out = q.new_empty((b, s, h, dv)).transpose(1, 2)
+    else:
+        out = q.new_empty((b, h, s, dv))
+    if not (b and h):
+        return out
     lib = load_library()
-    out = torch.empty_like(q)
-    if b and h:
-        route = _flash_route(q.dtype, d, all(
-            t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
-        launch = (lib.flash_attention_sm90_launch if route == "wgmma"
-                  else lib.flash_attention_launch)
-        with torch.cuda.device(dev):
-            _check(launch(
+    with torch.cuda.device(dev):
+        if route == "wgmma":
+            strides = (ctypes.c_longlong * 12)(*(
+                st for t in (q, k, v, out) for st in _bhs_strides(t)))
+            err = lib.flash_attention_sm90_launch(
+                _PA_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, h, hkv, s, d, dv, strides,
+                eff_scale, int(bool(causal)), _stream(dev))
+        else:
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            err = lib.flash_attention_launch(
                 _PA_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), b, h, hkv, s, d, eff_scale,
-                int(bool(causal)), _stream(dev)), f"flash_attention ({route})")
-        LAUNCHES["flash_attention"] += 1
-        FLASH_ROUTES[route] += 1
+                int(bool(causal)), _stream(dev))
+    _check(err, f"flash_attention ({route})")
+    LAUNCHES["flash_attention"] += 1
+    FLASH_ROUTES[route] += 1
     return out
 
 

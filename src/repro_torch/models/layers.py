@@ -173,6 +173,50 @@ def _out_proj(p, o_flat):
     return o_flat @ p["wo"]
 
 
+# --------------------------------------------------------------------- #
+# Causal self-attention of a whole sequence: the Hopper flash kernel or
+# the plain block loop.
+# --------------------------------------------------------------------- #
+def attn_widths(cfg: ModelConfig) -> tuple[int, int]:
+    """The (query-key, value) head widths of the model's self-attention."""
+    if getattr(cfg, "mla", None) is not None:
+        return cfg.mla.qk_head_dim, cfg.mla.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
+def prefill_route(x, dk: int, dv: int) -> str:
+    """Which code attends over a whole sequence of activations like ``x``
+    (its device, dtype and tensor type): ``"flash"``, the Hopper flash
+    kernel through ``ops.flash_attention``, when ``x`` is a plain CUDA
+    tensor (not a DTensor) in bf16 or fp16, grad is off (the served
+    prefill runs under ``no_grad``) and (Dk, Dv) is one of the kernel's
+    builds; else ``"plain"``, ``chunked_attention`` (training with grad,
+    the CPU, the dry run's DTensors, fp32)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import ops
+
+    if (not isinstance(x, DTensor) and x.device.type == "cuda"
+            and not torch.is_grad_enabled()
+            and ops._flash_route(x.dtype, dk, dv) == "wgmma"):
+        return "flash"
+    return "plain"
+
+
+def _flash_prefill(q, k, v):
+    """Causal ``ops.flash_attention`` over the model's ``[B, S, H, D]``
+    tensors, read and written in place by the kernel: ``[B, S, H, Dv]``,
+    scale ``1/sqrt(Dk)``.  Blocks of the whole sequence let S be any
+    length (the kernel tiles on its own)."""
+    from repro_torch.kernels import ops
+
+    s = q.shape[1]
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, block_q=s,
+                            block_k=s)
+    return o.transpose(1, 2)
+
+
 def attention(p, cfg: ModelConfig, x, positions):
     """Full-sequence causal attention (training): ``attention_with_kv``'s
     output without its K/V."""
@@ -187,7 +231,11 @@ def attention_with_kv(p, cfg: ModelConfig, x, positions, *, max_len=None):
     q, k, v = _project_qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = _by_shard(chunked_attention, q, k, v)
+    hd = q.shape[-1]
+    if prefill_route(q, hd, hd) == "flash":
+        o = _flash_prefill(q, k, v)
+    else:
+        o = _by_shard(chunked_attention, q, k, v)
     b, s = x.shape[:2]
     out = _out_proj(p, o.reshape(b, s, -1))
     if max_len is not None and max_len > s:
@@ -385,7 +433,11 @@ def mla_attention_with_latent(p, cfg: ModelConfig, x, positions):
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
     q = torch.cat([q_nope, q_pe], -1)
     k = torch.cat([k_nope, k_pe[:, :, None].expand(b, s, h, -1)], -1)
-    o = chunked_attention(q, k, v)  # [B, S, H, v], scale 1/sqrt(nope+rope)
+    # [B, S, H, v], scale 1/sqrt(nope+rope)
+    if prefill_route(q, m.qk_head_dim, m.v_head_dim) == "flash":
+        o = _flash_prefill(q, k, v)
+    else:
+        o = chunked_attention(q, k, v)
     return o.reshape(b, s, h * m.v_head_dim) @ p["wo"], lat
 
 

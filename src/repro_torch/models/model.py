@@ -433,7 +433,9 @@ class LM:
         latent a token and layer (``{"layers": {"latent": [L, B, S, r +
         rope]}}``); its layers record, with a span recorder ``spans``,
         ``prefill.mla`` and then ``prefill.moe`` (``prefill.mlp`` for a dense
-        layer) on the host's clock.
+        layer) on the host's clock.  With ``spans``, every attending layer
+        counts ``prefill.attn_flash`` or ``prefill.attn_plain``, the route
+        of its causal self-attention (``layers.prefill_route``).
         """
         cfg = self.cfg
         f = cfg.family
@@ -445,7 +447,12 @@ class LM:
         if cache is None:
             cache = self.init_cache(b, ml)
 
+        # Each attending layer counts its route (``layers.prefill_route``).
+        widths = L.attn_widths(cfg)
+
         def attn(lp, h, node, idx):
+            if spans is not None:
+                spans.count("prefill.attn_" + L.prefill_route(h, *widths))
             h, k, v = B.dense_block_prefill(lp, cfg, h, positions, ml,
                                             tally=moe_tally)
             _put(node, idx, {"k": k, "v": v})
@@ -458,7 +465,11 @@ class LM:
 
         if f in ("dense", "moe", "audio") and B._is_mla(cfg):
             for i, lp in enumerate(params["layers"]):
-                marks = [clock()] if spans is not None else None
+                marks = None
+                if spans is not None:
+                    spans.count("prefill.attn_"
+                                + L.prefill_route(x, *widths))
+                    marks = [clock()]
                 x, st = B.mla_block_prefill(lp, cfg, x, positions, ml,
                                             tally=moe_tally, marks=marks)
                 _put(cache["layers"], i, st)

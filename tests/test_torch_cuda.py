@@ -854,6 +854,102 @@ def test_flash_wgmma_route_raises_when_the_tensor_map_fails(cuda,
     assert (ops.LAUNCHES, ops.FLASH_ROUTES) == before
 
 
+# The served prefill's shapes: doc-qa's Moonlight prompts (16 heads of
+# 192/128) at its shortest and longest, a ragged short one; qwen3-4b's.
+PREFILL = {
+    "doc-qa-1359": (16, 16, 1359, 192, 128),
+    "doc-qa-4155": (16, 16, 4155, 192, 128),
+    "ragged-77": (16, 16, 77, 192, 128),
+    "qwen3-1000": (32, 8, 1000, 128, 128),
+}
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("name", sorted(PREFILL))
+def test_flash_prefill_shapes_on_wgmma_equal_plain(cuda, name, layout):
+    """The wgmma route at the served prefill's widths and lengths, on the
+    model's ``[B, S, H, D]`` views (V a strided slice, as MLA's is; the
+    output written in that layout) and on contiguous ``[B, H, S, D]``,
+    against the plain version in bf16 (one block of the whole S)."""
+    h, hkv, s, dk, dv = PREFILL[name]
+    rng = np.random.default_rng(s + dk)
+    dt = torch.bfloat16
+    # Logits of std 3, as in the tests above.
+    q, k, kv = (to_device(rng.standard_normal(shape) * sc, dt, cuda)
+                for shape, sc in (((1, s, h, dk), 3.0), ((1, s, hkv, dk), 1.0),
+                                  ((1, s, hkv, 2 * dv), 1.0)))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, kv[..., dv:]))
+    if layout == "bhsd":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = dict(ops.FLASH_ROUTES)
+    got = ops.flash_attention(q, k, v, causal=True, block_q=s, block_k=s)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES["wgmma"] == before["wgmma"] + 1
+    assert got.shape == (1, h, s, dv)
+    if layout == "bshd":  # q's memory order: [B, S, H, Dv]
+        assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(q, k, v, causal=True, block_q=s, block_k=s)
+    assert float(want.float().pow(2).mean().sqrt()) > 0.1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _prefill_configs():
+    """Moonlight's and qwen3-4b's attention at their published widths (16
+    heads of 192/128 over a latent of 512; 32/8 heads of 128), cut to 3
+    layers of width 256 in bf16, every FFN dense: an expert choice near a
+    tie would amplify the rounding of either route."""
+    ml = get_config("moonlight-16b-a3b")
+    qw = get_config("qwen3-4b")
+    small = dict(num_layers=3, d_model=256, d_ff=512, vocab_size=1024,
+                 param_dtype="bfloat16", compute_dtype="bfloat16")
+    return {"moonlight-16b-a3b": dataclasses.replace(ml, first_k_dense=3,
+                                                     **small),
+            "qwen3-4b": dataclasses.replace(qw, **small)}
+
+
+@pytest.mark.parametrize("arch", ["moonlight-16b-a3b", "qwen3-4b"])
+def test_prefill_on_the_flash_route_equals_the_plain_route(cuda, arch,
+                                                           monkeypatch):
+    """A 1,000-token prefill on the card: every layer on the wgmma flash
+    route (counted by ``prefill.attn_flash`` and the launches), its
+    last-position logits and every layer's cache (latents, or K and V)
+    held to the same prefill with ``chunked_attention`` forced, within 2%
+    of each tensor's largest element (bf16: the routes round P and the
+    outputs at other places; layer 0's cache, written before any
+    attention, is equal).  The plain route launches nothing."""
+    from repro_torch.models import layers as L
+    from repro_torch.telemetry.spans import SpanRecorder
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = _prefill_configs()[arch]
+    model = LM(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(5))
+    tokens = to_device(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 1000)), torch.int64, cuda)
+    out = {}
+    for route in ("flash", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(L, "prefill_route", lambda *a: "plain")
+        rec = SpanRecorder()
+        before = (ops.LAUNCHES["flash_attention"], ops.FLASH_ROUTES["wgmma"])
+        cache, logits = model.prefill(params, {"tokens": tokens}, spans=rec)
+        torch.cuda.synchronize()
+        n = (ops.LAUNCHES["flash_attention"] - before[0],
+             ops.FLASH_ROUTES["wgmma"] - before[1])
+        assert rec.counters == {f"prefill.attn_{route}": cfg.num_layers}
+        assert n == ((cfg.num_layers,) * 2 if route == "flash" else (0, 0))
+        out[route] = [logits, *(cache["layers"][k] for k in
+                                sorted(cache["layers"]))]
+    for i, (g, w) in enumerate(zip(out["flash"], out["plain"])):
+        assert g.dtype == w.dtype
+        if i:  # a cache: layer 0's is written before any attention
+            assert torch.equal(g[0], w[0])
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=2e-2 * scale)
+
+
 # --------------------------------------------------------------------- #
 # The MoE experts' grouped products.
 # --------------------------------------------------------------------- #

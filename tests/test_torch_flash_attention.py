@@ -10,7 +10,16 @@ outputs of order one), and the gemma-2b head shape (one KV head, D = 256).
 GQA by index equals the call on K/V repeated to every query head, and the
 wrapper keeps the reference's block contract.  The CUDA kernel is held to
 the plain version on the card by ``tests/test_torch_cuda.py``.
+
+The served prefill's route: V narrower than Q/K (latent attention's 192/128
+heads) in the plain version and through the model's call of the wrapper on
+``[B, S, H, D]`` views, both held to ``chunked_attention``; the rule that
+sends a prefill to the kernel (``layers.prefill_route``); and ``LM.prefill``
+on the CPU counting every layer on the plain route.
 """
+
+import dataclasses
+import types
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -21,8 +30,13 @@ import torch
 from repro.kernels import ops as K
 from repro.kernels import ref as R
 
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import ops as P
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.models import layers as L
+from repro_torch.models.chunked_attention import chunked_attention
+from repro_torch.models.model import LM
+from repro_torch.telemetry.spans import SpanRecorder
 
 
 def make_qkv(rng, b, h, hk, s, d):
@@ -138,6 +152,120 @@ def test_wrapper_keeps_the_block_contract():
     with pytest.raises(ValueError):  # D above 256
         z = torch.zeros((1, 1, 8, 264))
         P.flash_attention(z, z, z)
+    with pytest.raises(ValueError):  # V wider than Q/K
+        P.flash_attention(q, k, torch.zeros((1, 1, 96, 32)))
+    with pytest.raises(ValueError):  # no unit stride along the width
+        P.flash_attention(q, k, v.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+# --------------------------------------------------------------------- #
+# The served prefill's attention: V narrower than Q/K, any S.
+# --------------------------------------------------------------------- #
+def _bshd(rng, b, h, hkv, s, dk, dv):
+    """The model's ``[B, S, H, D]`` q, k, v in fp32 (logits of std 3)."""
+    return (torch.from_numpy(rng.standard_normal(shape) * sc).float()
+            for shape, sc in (((b, s, h, dk), 3.0), ((b, s, hkv, dk), 1.0),
+                              ((b, s, hkv, dv), 1.0)))
+
+
+WIDTHS = [(128, 128), (192, 128)]
+
+
+@pytest.mark.parametrize("block", [50, 200])
+@pytest.mark.parametrize("dk,dv", WIDTHS)
+def test_plain_equals_chunked_attention(dk, dv, block):
+    """Causal GQA at S 200 (not a multiple of 128): the plain version of
+    the kernel and the prefill's block loop agree in fp32 at 1e-5, V
+    narrower than Q/K included."""
+    q, k, v = _bshd(np.random.default_rng(dk + block), 2, 8, 2, 200, dk, dv)
+    want = chunked_attention(q, k, v)
+    got = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                block_q=block, block_k=block)
+    assert got.shape == (2, 8, 200, dv)
+    torch.testing.assert_close(got.transpose(1, 2), want, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [1, 77, 200])
+@pytest.mark.parametrize("dk,dv", WIDTHS)
+def test_the_prefills_call_of_the_wrapper_equals_chunked(dk, dv, s):
+    """The model's call (``layers._flash_prefill``: transposed views,
+    blocks of the whole sequence) at any S, V a strided slice as MLA's is,
+    equals ``chunked_attention`` in fp32 at 1e-5, with no launch on the
+    CPU."""
+    q, k, kv = _bshd(np.random.default_rng(s + dk), 1, 4, 2, s, dk, 2 * dv)
+    v = kv[..., dv:]  # a strided view, as MLA's values are
+    before = dict(P.LAUNCHES)
+    got = L._flash_prefill(q, k, v)
+    assert P.LAUNCHES == before
+    assert got.shape == (1, s, 4, dv)
+    torch.testing.assert_close(got, chunked_attention(q, k, v), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _like(device, dtype):
+    """What ``prefill_route`` reads of a tensor: its device and dtype."""
+    return types.SimpleNamespace(device=torch.device(device), dtype=dtype)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (256, 256),
+                                   (192, 128), (192, 192), (80, 80),
+                                   (128, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_the_prefill_route_rule(dtype, dk, dv):
+    """Flash only for a CUDA tensor in a half type with grad off at a
+    built width; the CPU, fp32, grad and other widths keep the plain
+    loop."""
+    built = (dk, dv) in ((64, 64), (128, 128), (256, 256), (192, 128))
+    half = dtype != torch.float32
+    with torch.no_grad():
+        assert L.prefill_route(_like("cuda", dtype), dk, dv) == (
+            "flash" if built and half else "plain")
+        assert L.prefill_route(_like("cpu", dtype), dk, dv) == "plain"
+        assert L.prefill_route(torch.zeros(1, dtype=dtype), dk,
+                               dv) == "plain"
+    with torch.enable_grad():
+        assert L.prefill_route(_like("cuda", dtype), dk, dv) == "plain"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_route_takes_v_narrower(dtype):
+    """(192, 128) is a wgmma build, (192, 192) and (128, 64) are not."""
+    assert P._flash_route(dtype, 192, 128) == "wgmma"
+    assert P._flash_route(dtype, 192, 128, aligned=False) == "simt"
+    assert P._flash_route(dtype, 192, 192) == "simt"
+    assert P._flash_route(dtype, 128, 64) == "simt"
+    assert P._flash_route(torch.float32, 192, 128) == "simt"
+
+
+def _moonlight_small():
+    cfg = get_config("moonlight-16b-a3b")
+    return dataclasses.replace(
+        cfg, num_layers=2, d_model=64, d_ff=128, vocab_size=256,
+        moe=dataclasses.replace(cfg.moe, num_experts=4, top_k=2,
+                                d_ff_expert=32),
+        compute_dtype="float32")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "moonlight-16b-a3b"])
+def test_lm_prefill_on_the_cpu_counts_the_plain_route(arch):
+    """On the CPU every layer of a prefill attends through
+    ``chunked_attention``: ``prefill.attn_plain`` counts each, nothing
+    launches."""
+    cfg = (reduced_config(get_config(arch)) if arch == "qwen3-4b"
+           else _moonlight_small())
+    model = LM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rec = SpanRecorder()
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 37)))
+    before = (dict(P.LAUNCHES), dict(P.FLASH_ROUTES))
+    model.prefill(params, {"tokens": tokens}, spans=rec)
+    assert (P.LAUNCHES, P.FLASH_ROUTES) == before
+    assert rec.counters.get("prefill.attn_plain") == cfg.num_layers
+    assert "prefill.attn_flash" not in rec.counters
 
 
 # --------------------------------------------------------------------- #
