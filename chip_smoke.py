@@ -57,7 +57,7 @@ exits nonzero):
               (2e-2) and fp32 (1e-4), under set_sync_debug_mode("error"),
               the routing equal bytewise; then the grouped products alone
               (ops.moe_experts) on every route (wgmma, the card's for
-              bf16; wmma, its yardstick; simt) at those inputs and, in
+              bf16; simt) at those inputs and, in
               bf16, at train (d)'s shapes (B 4 x S 1,024 routed by layer
               0: M 24,576), timed cold beside their plain version, their
               bound (the experts hit, read once; 2 x slots x 3 x d x ff
@@ -70,7 +70,7 @@ exits nonzero):
               E 8, 512 rows, bf16): each gradient within MOE_TOL of its
               largest element, two calls bit for bit, no host sync, an
               exact-zero dW for an expert with no rows; the call and each
-              kernel timed cold on wgmma and on wmma beside the plain
+              kernel timed cold on wgmma beside the plain
               version, the bound (2 x 3 x 2 M d ff operations) and
               torch._grouped_mm's six products.
 4. kernels  — every kernel against its plain PyTorch version on the card,
@@ -280,7 +280,7 @@ phase 4, each with its hard checks, one JSON line each.
 
 `python3 chip_smoke.py --moe-launches` times each launch of the MoE
 experts' forward and backward alone, warm, at train (d)'s shapes on the
-wgmma and wmma routes (moe_launch_times), and prints one JSON line.
+wgmma route (moe_launch_times), and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -1308,9 +1308,9 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
 
 
 # Kernels of the two grouped MoE products (the forward), by name in a
-# profiler trace: the wgmma route's, then the wmma and simt routes'.  The
+# profiler trace: the wgmma route's, then the simt route's.  The
 # backward's all carry "moe_bwd_".
-MOE_KERNEL_NAMES = ("moe_wgmma_kernel", "moe_wmma_kernel", "moe_simt_kernel")
+MOE_KERNEL_NAMES = ("moe_wgmma_kernel", "moe_simt_kernel")
 # The paged decode kernels: paged_attention's split and combine, then
 # paged_mla_attention's split (mma or simt route) and combine.
 PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_combine_kernel",
@@ -1454,7 +1454,7 @@ def phase_moe(device, cfg, rec, scale: float = 1.0):
     and fp32 (1e-4), each call under ``set_sync_debug_mode("error")``;
     the routing of both paths equal bytewise, every call on the route its
     dtype gives.  Then the grouped products alone (``ops.moe_experts``)
-    on every route the dtype allows (wgmma, wmma, simt), also at train
+    on every route the dtype allows (wgmma, simt), also at train
     (d)'s shapes in bf16, held to the plain version and timed cold beside
     it, their bound and ``torch._grouped_mm``; ``moe_ffn`` itself timed
     cold (both dispatches, bf16); and the experts' backward kernels
@@ -1510,8 +1510,7 @@ def phase_moe(device, cfg, rec, scale: float = 1.0):
             counts = ends - torch.cat([ends.new_zeros(1), ends[:-1]])
             hit = int((counts > 0).sum())
             want = moe_experts_plain(*args)
-            routes = ([route, "wmma", "simt"] if route != "simt"
-                      else ["simt"])
+            routes = [route, "simt"] if route != "simt" else ["simt"]
             err = max(held(f"moe_experts ({r}, {name}, {dtype})",
                            ops.moe_experts(*args, _route=r), want, tol)
                       for r in routes)
@@ -1648,8 +1647,7 @@ def moe_backward_case(device, name, args, dtype: str, timed: bool):
     ``set_sync_debug_mode("error")``, bit-identical, held to
     ``moe_experts_backward_plain`` (``moe_grads_held``), experts with no
     rows an exact-zero dW; ``timed``: the call and each kernel (on the
-    card's route, and in 16 bits on wmma, its yardstick, held too), the
-    plain version and ``torch._grouped_mm`` timed cold beside the
+    card's route), the plain version and ``torch._grouped_mm`` timed cold beside the
     bound."""
     import torch
 
@@ -1707,19 +1705,6 @@ def moe_backward_case(device, name, args, dtype: str, timed: bool):
                         + m * d + e * mats * d * ff) + offs.numel() * 4)
         bwd = lambda: torch.autograd.grad(  # noqa: E731
             out, ins, dy, retain_graph=True)
-        if route != "simt":
-            # The wmma route's backward, on a forward of its own.
-            out_w = ops.moe_experts(*call, act, _route="wmma")
-            bwd_w = lambda: torch.autograd.grad(  # noqa: E731
-                out_w, ins, dy, retain_graph=True)
-            got_w = list(bwd_w())
-            if w_gate is None:
-                got_w.insert(1, None)
-            moe_grads_held(f"{label} wmma", got_w, want, dtype)
-            del got_w
-            row.update(wmma_ms=time_ms_cold(bwd_w, 10, device),
-                       wmma_kernels_ms=moe_bwd_kernel_ms(bwd_w, device, 5))
-            del out_w, bwd_w
         row.update(
             ms=time_ms_cold(bwd, 10, device),
             kernels_ms=moe_bwd_kernel_ms(bwd, device, 5),
@@ -1839,8 +1824,8 @@ def mla_kernel_row(device, recorded) -> dict:
 def moe_launch_times(device) -> dict:
     """Each MoE launch alone at train (d)'s shapes: M 24,576 rows routed
     uniformly at random (from SEED) over 64 experts, d 2,048, ff 1,408,
-    bf16, silu GLU; warm (``time_ms``, 10 calls), on the wgmma and wmma
-    routes.  The forward's up launch (with and without the saved products)
+    bf16, silu GLU; warm (``time_ms``, 10 calls), on the wgmma
+    route.  The forward's up launch (with and without the saved products)
     and down launch; dh, and its product alone (dx's launcher with one
     term); dx; dw of gate and up, and of down; and the two dw launches at
     8 experts of 3,072 rows (48-step reductions a tile).  The launchers of
@@ -1873,45 +1858,45 @@ def moe_launch_times(device) -> dict:
     s = ops._stream(device)
     P = torch.Tensor.data_ptr
     out = {"M": m, "E": e, "d": d, "ff": ff}
-    for route in ("wgmma", "wmma"):
-        r = ops._MOE_ROUTE_IDS[route]
-        calls = {
-            "up_save": lambda: lib.moe_experts_launch(
-                1, r, P(xs), P(wg), P(wu), P(offs), P(o), P(da), P(db), m,
-                d, ff, e, 1, s),
-            "up": lambda: lib.moe_experts_launch(
-                1, r, P(xs), P(wg), P(wu), P(offs), P(o), None, None, m, d,
-                ff, e, 1, s),
-            "down": lambda: lib.moe_experts_launch(
-                1, r, P(h), P(wd), None, P(offs), P(dxs), None, None, m, ff,
-                d, e, 0, s),
-            "dh": lambda: lib.moe_bwd_dh_launch(
-                1, r, P(dy), P(wd), P(offs), P(a), P(b), P(da), P(db), P(h),
-                m, d, ff, e, 1, s),
-            "dh_product": lambda: lib.moe_bwd_dx_launch(
-                1, r, None, None, P(dy), P(wd), P(offs), P(o), m, ff, d, e,
-                s),
-            "dx": lambda: lib.moe_bwd_dx_launch(
-                1, r, P(da), P(wg), P(db), P(wu), P(offs), P(dxs), m, d, ff,
-                e, s),
-            "dw_up": lambda: lib.moe_bwd_dw_launch(
-                1, r, P(xs), P(da), P(db), P(offs), P(dwg), P(dwu), m, d,
-                ff, e, s),
-            "dw_down": lambda: lib.moe_bwd_dw_launch(
-                1, r, P(h), P(dy), None, P(offs), P(dwd), None, m, ff, d, e,
-                s),
-            "dw_up_e8": lambda: lib.moe_bwd_dw_launch(
-                1, r, P(xs), P(da), P(db), P(offs8), P(dwg), P(dwu), m, d,
-                ff, 8, s),
-            "dw_down_e8": lambda: lib.moe_bwd_dw_launch(
-                1, r, P(h), P(dy), None, P(offs8), P(dwd), None, m, ff, d, 8,
-                s)}
-        times = {}
-        for name, call in calls.items():
-            def run(call=call, name=name):
-                ops._check(call(), f"moe launch {name} ({route})")
-            times[name] = time_ms(run, 10, device)
-        out[route] = times
+    route = "wgmma"
+    r = ops._MOE_ROUTE_IDS[route]
+    calls = {
+        "up_save": lambda: lib.moe_experts_launch(
+            1, r, P(xs), P(wg), P(wu), P(offs), P(o), P(da), P(db), m,
+            d, ff, e, 1, s),
+        "up": lambda: lib.moe_experts_launch(
+            1, r, P(xs), P(wg), P(wu), P(offs), P(o), None, None, m, d,
+            ff, e, 1, s),
+        "down": lambda: lib.moe_experts_launch(
+            1, r, P(h), P(wd), None, P(offs), P(dxs), None, None, m, ff,
+            d, e, 0, s),
+        "dh": lambda: lib.moe_bwd_dh_launch(
+            1, r, P(dy), P(wd), P(offs), P(a), P(b), P(da), P(db), P(h),
+            m, d, ff, e, 1, s),
+        "dh_product": lambda: lib.moe_bwd_dx_launch(
+            1, r, None, None, P(dy), P(wd), P(offs), P(o), m, ff, d, e,
+            s),
+        "dx": lambda: lib.moe_bwd_dx_launch(
+            1, r, P(da), P(wg), P(db), P(wu), P(offs), P(dxs), m, d, ff,
+            e, s),
+        "dw_up": lambda: lib.moe_bwd_dw_launch(
+            1, r, P(xs), P(da), P(db), P(offs), P(dwg), P(dwu), m, d,
+            ff, e, s),
+        "dw_down": lambda: lib.moe_bwd_dw_launch(
+            1, r, P(h), P(dy), None, P(offs), P(dwd), None, m, ff, d, e,
+            s),
+        "dw_up_e8": lambda: lib.moe_bwd_dw_launch(
+            1, r, P(xs), P(da), P(db), P(offs8), P(dwg), P(dwu), m, d,
+            ff, 8, s),
+        "dw_down_e8": lambda: lib.moe_bwd_dw_launch(
+            1, r, P(h), P(dy), None, P(offs8), P(dwd), None, m, ff, d, 8,
+            s)}
+    times = {}
+    for name, call in calls.items():
+        def run(call=call, name=name):
+            ops._check(call(), f"moe launch {name} ({route})")
+        times[name] = time_ms(run, 10, device)
+    out[route] = times
     return out
 
 
@@ -4119,7 +4104,6 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in moe["products"].values()),
         tolerance=dict(MOE_TOL), ms=prod["ms"], plain_ms=prod["plain_ms"],
         bound=prod["bound"], library_ms=prod["library_ms"],
-        wmma_ms=prod["wmma_ms"],
         shape={k: prod[k] for k in ("M", "d", "ff", "E", "experts_hit",
                                     "route")},
         ptxas=resources["moe_experts_sm90"])
@@ -4128,8 +4112,7 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in moe["backward"].values()),
         tolerance=dict(MOE_TOL), ms=bwd["ms"], plain_ms=bwd["plain_ms"],
         bound=bwd["bound"], library_ms=bwd["library_ms"],
-        kernels_ms=bwd["kernels_ms"], wmma_ms=bwd["wmma_ms"],
-        wmma_kernels_ms=bwd["wmma_kernels_ms"],
+        kernels_ms=bwd["kernels_ms"],
         shape={k: bwd[k] for k in ("M", "d", "ff", "E", "experts_hit",
                                    "route")},
         ptxas=resources["moe_experts_sm90"])
@@ -4221,9 +4204,7 @@ def main() -> int:
                           **{key: k[key] for key in ("serial_steps",
                                                      "ns_per_step")
                              if key in k},
-                          **{key: k[key] for key in ("kernels_ms",
-                                                     "wmma_kernels_ms",
-                                                     "wmma_ms", "ptxas")
+                          **{key: k[key] for key in ("kernels_ms", "ptxas")
                              if key in k and kname in NO_TPU_KERNEL}))
     emit({"kernels": lines})
     print(smi, flush=True)

@@ -32,11 +32,6 @@
 // a CTA numbered past the last expert's tiles returns.  CTAs of one column
 // tile and neighbouring row tiles run side by side, so an expert's weight
 // tile is read from device memory once and from L2 by its other row tiles.
-//   route "wmma" (bf16/fp16; K and N multiples of 8, 16-byte aligned
-//   tensors; reached only when forced, as the yardstick of "wgmma"): 4 warps, each 32x32 of the 64x64 tile in 16x16x16
-//   tensor-core fragments with fp32 accumulators; tiles of depth 32 of A
-//   and B (and B2) double-buffered in shared memory by 16-byte cp.async;
-//   the accumulators go through shared memory for the epilogue.
 //   route "simt" (any float type and shape; fp32 always): 256 threads, 4x4
 //   outputs each, fp32 FMAs over tiles of depth 16 staged in shared memory.
 //   route "wgmma" (the card's for bf16/fp16): moe_experts_sm90.cu's TMA +
@@ -45,13 +40,9 @@
 // Plain C interface, bound with ctypes: the launcher returns the CUDA error
 // code of its launch (0 on success) and never synchronises.
 
-#include <mma.h>
-
 #include "moe_experts.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 // The output element at i, and (when the backward needs them) the two
 // products rounded to T: save gets the first, save2 the gate's.
@@ -62,124 +53,6 @@ __device__ __forceinline__ void store(T* __restrict__ out, T* __restrict__ save,
   if (save) save[i] = from_f<T>(a);
   if (save2) save2[i] = from_f<T>(b);
   out[i] = from_f<T>(epilogue<T>(mode, a, b));
-}
-
-// ---------------------------------------------------------------------- //
-// Route "wmma".
-// ---------------------------------------------------------------------- //
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads)
-moe_wmma_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ b2,
-                const int* __restrict__ offs, T* __restrict__ out, T* __restrict__ save,
-                T* __restrict__ save2, int M, int K, int N, int E, int mode) {
-  constexpr int kStageA = kBM * kLdA;
-  constexpr int kStageB = kTcBK * kLdB;
-  constexpr int kPipe = 2 * (kStageA + 2 * kStageB) * (int)sizeof(T);
-  constexpr int kEpi = 2 * kBM * kLdC * (int)sizeof(float);
-  __shared__ __align__(128) unsigned char smem[kPipe > kEpi ? kPipe : kEpi];
-  __shared__ int info[3];
-
-  if (threadIdx.x < 32) find_tile(offs, E, M, blockIdx.x, info);
-  __syncthreads();
-  const int group = info[0];
-  if (group < 0) return;
-  const int row0 = info[1], row_end = info[2];
-  const int col0 = blockIdx.y * kBN;
-  const bool glu = b2 != nullptr;
-  const T* bg = b + (size_t)group * K * N;
-  const T* bu = glu ? b2 + (size_t)group * K * N : b;
-  T* sa = reinterpret_cast<T*>(smem);  // [2][kBM][kLdA]
-  T* sb = sa + 2 * kStageA;            // [2][kTcBK][kLdB]
-  T* sb2 = sb + 2 * kStageB;           // [2][kTcBK][kLdB]
-
-  auto load = [&](int stage, int k0) {
-    for (int c = threadIdx.x; c < kBM * kTcBK / 8; c += kTcThreads) {
-      const int r = c / (kTcBK / 8), kc = (c % (kTcBK / 8)) * 8;
-      const int row = row0 + r, k = k0 + kc;
-      const bool ok = row < row_end && k < K;
-      cp_async16(sa + stage * kStageA + r * kLdA + kc, ok ? a + (size_t)row * K + k : a, ok);
-    }
-    for (int c = threadIdx.x; c < kTcBK * kBN / 8; c += kTcThreads) {
-      const int r = c / (kBN / 8), nc = (c % (kBN / 8)) * 8;
-      const int k = k0 + r, n = col0 + nc;
-      const bool ok = k < K && n < N;
-      const size_t off = (size_t)k * N + n;
-      cp_async16(sb + stage * kStageB + r * kLdB + nc, ok ? bg + off : bg, ok);
-      if (glu) cp_async16(sb2 + stage * kStageB + r * kLdB + nc, ok ? bu + off : bu, ok);
-    }
-    cp_async_commit();
-  };
-
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], acc2[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      wmma::fill_fragment(acc2[i][j], 0.f);
-    }
-
-  const int nk = (K + kTcBK - 1) / kTcBK;
-  load(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load((kt + 1) & 1, (kt + 1) * kTcBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* ta = sa + (kt & 1) * kStageA;
-    const T* tb = sb + (kt & 1) * kStageB;
-    const T* tb2 = sb2 + (kt & 1) * kStageB;
-#pragma unroll
-    for (int kk = 0; kk < kTcBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], ta + (wm + 16 * i) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], tb + kk * kLdB + wn + 16 * j, kLdB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      if (glu) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], tb2 + kk * kLdB + wn + 16 * j, kLdB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc2[i][j], fa[i], fb[j], acc2[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // The pipeline's buffers are free (every warp passed the last barrier).
-  float* sc = reinterpret_cast<float*>(smem);  // [kBM][kLdC]
-  float* sc2 = sc + kBM * kLdC;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int o = (wm + 16 * i) * kLdC + wn + 16 * j;
-      wmma::store_matrix_sync(sc + o, acc[i][j], kLdC, wmma::mem_row_major);
-      if (glu) wmma::store_matrix_sync(sc2 + o, acc2[i][j], kLdC, wmma::mem_row_major);
-    }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kBM * kBN; idx += kTcThreads) {
-    const int r = idx / kBN, c = idx % kBN;
-    const int row = row0 + r, n = col0 + c;
-    if (row < row_end && n < N)
-      store<T>(out, save, save2, (size_t)row * N + n, mode, sc[r * kLdC + c],
-               glu ? sc2[r * kLdC + c] : 0.f);
-  }
 }
 
 // ---------------------------------------------------------------------- //
@@ -261,7 +134,7 @@ moe_simt_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __res
 }
 
 template <typename T>
-int launch(int route, const void* a, const void* b, const void* b2, const void* offs, void* out,
+int launch(const void* a, const void* b, const void* b2, const void* offs, void* out,
            void* save, void* save2, int M, int K, int N, int E, int mode, cudaStream_t stream) {
   const dim3 grid((M + kBM - 1) / kBM + E, (N + kBN - 1) / kBN);
   const T* pa = static_cast<const T*>(a);
@@ -271,23 +144,14 @@ int launch(int route, const void* a, const void* b, const void* b2, const void* 
   T* pout = static_cast<T*>(out);
   T* ps = static_cast<T*>(save);
   T* ps2 = static_cast<T*>(save2);
-  if (route == 0) {
-    if constexpr (sizeof(T) == 2) {
-      moe_wmma_kernel<T><<<grid, kTcThreads, 0, stream>>>(pa, pb, pb2, po, pout, ps, ps2, M,
-                                                          K, N, E, mode);
-    } else {
-      return cudaErrorInvalidValue;  // no fp32 tensor-core route
-    }
-  } else {
-    moe_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(pa, pb, pb2, po, pout, ps, ps2, M,
-                                                          K, N, E, mode);
-  }
+  moe_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(pa, pb, pb2, po, pout, ps, ps2, M, K,
+                                                        N, E, mode);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16; route: 0 wmma, 1 simt, 2 wgmma
+// dtype: 0 fp32, 1 bf16, 2 fp16; route: 1 simt, 2 wgmma
 // (moe_experts_sm90.cu; bf16 and fp16); b2 null for the
 // one-matrix modes.  save and save2, each [M, N] or null, get the two
 // products rounded to the element type (the backward's saved tensors; null
@@ -296,7 +160,7 @@ extern "C" int moe_experts_launch(int dtype, int route, const void* a, const voi
                                   const void* b2, const void* offs, void* out, void* save,
                                   void* save2, int M, int K, int N, int E, int mode,
                                   void* stream) {
-  if (M <= 0 || N <= 0 || E <= 0 || K <= 0 || mode < 0 || mode > 4 || route < 0 || route > 2)
+  if (M <= 0 || N <= 0 || E <= 0 || K <= 0 || mode < 0 || mode > 4 || route < 1 || route > 2)
     return cudaErrorInvalidValue;
   if ((mode == 1 || mode == 2) != (b2 != nullptr)) return cudaErrorInvalidValue;
   if (save2 != nullptr && b2 == nullptr) return cudaErrorInvalidValue;
@@ -304,9 +168,9 @@ extern "C" int moe_experts_launch(int dtype, int route, const void* a, const voi
   if (route == 2)
     return moe_sm90_forward(dtype, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
   switch (dtype) {
-    case 0: return launch<float>(route, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
-    case 1: return launch<__nv_bfloat16>(route, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
-    case 2: return launch<__half>(route, a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
+    case 0: return launch<float>(a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
+    case 1: return launch<__nv_bfloat16>(a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
+    case 2: return launch<__half>(a, b, b2, offs, out, save, save2, M, K, N, E, mode, s);
     default: return cudaErrorInvalidValue;
   }
 }

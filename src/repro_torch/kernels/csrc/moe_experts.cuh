@@ -1,9 +1,9 @@
 // What the MoE experts' forward (moe_experts.cu), backward
 // (moe_experts_bwd.cu) and tensor-core (moe_experts_sm90.cu) kernels share:
-// the tile shape of the wmma and simt routes, the element conversions and
-// rounding, the activations and their derivatives, the epilogues' arithmetic,
-// the warp scan that finds a row tile's expert, the 16-byte cp.async, and
-// the entry points of the wgmma route.
+// the tile shape of the simt route, the element conversions and rounding,
+// the activations and their derivatives, the epilogues' arithmetic, the
+// warp scan that finds a row tile's expert, and the entry points of the
+// wgmma route.
 
 #pragma once
 
@@ -16,14 +16,9 @@ namespace {
 
 constexpr int kBM = 64;  // rows of a tile
 constexpr int kBN = 64;  // columns of a tile
-constexpr int kTcBK = 32;
-constexpr int kTcThreads = 128;
 constexpr int kSimtBK = 16;
 constexpr int kSimtThreads = 256;
-constexpr int kLdA = kTcBK + 8;  // 16-bit elements; rows stay 16-byte aligned
-constexpr int kLdB = kBN + 8;
-constexpr int kLdC = kBN + 4;    // floats
-constexpr int kLdS = kBM + 4;    // floats, simt tiles
+constexpr int kLdS = kBM + 4;  // floats, simt tiles
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -91,7 +86,7 @@ __device__ TileInfo locate_tile(const int* __restrict__ offs, int E, int M, int 
   return info;
 }
 
-// Warp 0: locate_tile for the wmma and simt routes' 64-row tiles; writes
+// Warp 0: locate_tile for the simt route's 64-row tiles; writes
 // (expert, first row, end row) to info.
 __device__ void find_tile(const int* __restrict__ offs, int E, int M, int t, int* info) {
   const TileInfo ti = locate_tile<kBM>(offs, E, M, t);
@@ -164,19 +159,6 @@ __device__ __forceinline__ void glu_backward(int mode, float dh_acc, float a, fl
     *da = 0.f;
     *db = dh * grad;
   }
-}
-
-// 16 bytes from global to shared memory; zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace

@@ -32,40 +32,27 @@
 // read once and their gradients written once, 2.2 GB, with xs, dY, a, b
 // and dXs) are 0.78 ms at 3.35 TB/s.  Operations bound it, bytes nearly.
 //
-// Design.  A simple kernel that is right: the forward's tiles, fragments
-// and group lookup, no wgmma or TMA yet.
+// Design.  Two routes.  route "simt" (any float type and shape; fp32
+// always): 256 threads, 4x4 outputs each, fp32 FMAs over tiles staged in
+// shared memory.
 //   dh, dx ("nt": C = A Bt^T with Bt [E, N, K] read in place): one CTA per
 //   (row tile of one expert, 64-column tile), the expert found by the
 //   forward's warp scan over offs (find_tile), so the host never reads
 //   the group sizes.  The weights are read untransposed: a tile of Bt rows
-//   is staged [n][k] in shared memory and read by WMMA's col_major
-//   matrix_b fragment as [k][n].  dx walks K twice, first (dA, w_gate),
-//   then (dB, w_up), into the same accumulators.
+//   is staged [k][n] in shared memory.  dx walks K twice, first (dA,
+//   w_gate), then (dB, w_up), into the same accumulators.
 //   dw ("tn"): grid (N tile, K tile, expert); each CTA reads its expert's
-//   row range from offs on the device and walks it in tiles of 32 rows (16
-//   on SIMT), rows outside [start, end) zero-filled, including on the
-//   16-byte cp.async copies; a tile of X staged [row][k] is read by WMMA's
-//   col_major matrix_a fragment as X^T.
-//   route "wmma" (bf16/fp16; d and ff multiples of 8, 16-byte aligned
-//   tensors; reached only when forced, as the yardstick of "wgmma"): 4
-//   warps, each 32x32 of a 64x64 tile in 16x16x16 fragments with fp32
-//   accumulators, tiles double-buffered by 16-byte cp.async, the
-//   accumulators through shared memory for the epilogue.  route "simt"
-//   (any float type and shape; fp32 always): 256 threads, 4x4 outputs
-//   each, fp32 FMAs over tiles staged in shared memory.  route "wgmma"
-//   (the card's for bf16/fp16): moe_experts_sm90.cu's TMA + wgmma
-//   mainloop, called by the launchers below.
+//   row range from offs on the device and walks it in tiles of 16 rows,
+//   rows outside [start, end) zero-filled.
+// route "wgmma" (the card's for bf16/fp16): moe_experts_sm90.cu's TMA +
+// wgmma mainloop, called by the launchers below.
 //
 // Plain C interface, bound with ctypes: each launcher returns the CUDA
 // error code of its launch (0 on success) and never synchronises.
 
-#include <mma.h>
-
 #include "moe_experts.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 // "nt": C[r, n] = sum over terms t of A_t[r, :] . Bt_t[e][n, :], A_t
 // [M, K], Bt_t [E, N, K]; terms 1 or 2.  The epilogue: mode 0 stores C to
@@ -99,96 +86,6 @@ __device__ __forceinline__ void nt_epilogue(const NtArgs<T>& p, size_t i, float 
   if (glu) p.da[i] = from_f<T>(da);
   p.db[i] = from_f<T>(db);
   p.h[i] = from_f<T>(h);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads) moe_bwd_nt_wmma_kernel(NtArgs<T> p) {
-  constexpr int kStage = kBM * kLdA;  // an A tile and a Bt tile: [64][kLdA] each
-  constexpr int kPipe = 2 * 2 * kStage * (int)sizeof(T);
-  constexpr int kEpi = kBM * kLdC * (int)sizeof(float);
-  __shared__ __align__(128) unsigned char smem[kPipe > kEpi ? kPipe : kEpi];
-  __shared__ int info[3];
-
-  if (threadIdx.x < 32) find_tile(p.offs, p.E, p.M, blockIdx.x, info);
-  __syncthreads();
-  const int group = info[0];
-  if (group < 0) return;
-  const int row0 = info[1], row_end = info[2];
-  const int col0 = blockIdx.y * kBN;
-  const int K = p.K, N = p.N;
-  T* sa = reinterpret_cast<T*>(smem);  // [2][kBM][kLdA]: rows x k
-  T* sb = sa + 2 * kStage;             // [2][kBN][kLdA]: columns x k
-
-  const T *a0 = p.a0, *a1 = p.a1;  // locals: the lambda takes no kernel parameter's address
-  const T* bt0 = p.bt0 + (size_t)group * N * K;
-  const T* bt1 = p.terms > 1 ? p.bt1 + (size_t)group * N * K : bt0;
-  const int nk = (K + kTcBK - 1) / kTcBK;
-  auto load = [&](int stage, int kt) {
-    const bool second = kt >= nk;
-    const T* A = second ? a1 : a0;
-    const T* Bt = second ? bt1 : bt0;
-    const int k0 = (second ? kt - nk : kt) * kTcBK;
-    for (int c = threadIdx.x; c < kBM * kTcBK / 8; c += kTcThreads) {
-      const int r = c / (kTcBK / 8), kc = (c % (kTcBK / 8)) * 8;
-      const int k = k0 + kc, row = row0 + r, n = col0 + r;
-      const bool oka = row < row_end && k < K, okb = n < N && k < K;
-      cp_async16(sa + stage * kStage + r * kLdA + kc, oka ? A + (size_t)row * K + k : A, oka);
-      cp_async16(sb + stage * kStage + r * kLdA + kc, okb ? Bt + (size_t)n * K + k : Bt, okb);
-    }
-    cp_async_commit();
-  };
-
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int total = nk * p.terms;
-  load(0, 0);
-  for (int kt = 0; kt < total; ++kt) {
-    if (kt + 1 < total) {
-      load((kt + 1) & 1, kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* ta = sa + (kt & 1) * kStage;
-    const T* tb = sb + (kt & 1) * kStage;
-#pragma unroll
-    for (int kk = 0; kk < kTcBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], ta + (wm + 16 * i) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], tb + (wn + 16 * j) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* sc = reinterpret_cast<float*>(smem);  // [kBM][kLdC]
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sc + (wm + 16 * i) * kLdC + wn + 16 * j, acc[i][j], kLdC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kBM * kBN; idx += kTcThreads) {
-    const int r = idx / kBN, c = idx % kBN;
-    const int row = row0 + r, n = col0 + c;
-    if (row < row_end && n < N) nt_epilogue(p, (size_t)row * N + n, sc[r * kLdC + c]);
-  }
 }
 
 template <typename T>
@@ -263,112 +160,6 @@ struct TnArgs {
   int M, K, N, E;
 };
 
-constexpr int kLdT = kBN + 8;  // 16-bit elements of a staged row: 64 + 8
-
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads) moe_bwd_tn_wmma_kernel(TnArgs<T> p) {
-  constexpr int kStage = kTcBK * kLdT;  // [32 rows][kLdT] for x, g and g2 each
-  constexpr int kPipe = 2 * 3 * kStage * (int)sizeof(T);
-  constexpr int kEpi = 2 * kBM * kLdC * (int)sizeof(float);
-  __shared__ __align__(128) unsigned char smem[kPipe > kEpi ? kPipe : kEpi];
-
-  const int e = blockIdx.z, k0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int K = p.K, N = p.N;
-  int lo, hi;
-  expert_rows(p.offs, e, p.M, &lo, &hi);
-  const T *x = p.x, *g = p.g, *g2 = p.g2;  // locals, as in the nt kernel
-  const bool two = g2 != nullptr;
-  T* sx = reinterpret_cast<T*>(smem);  // [2][32][kLdT]: rows x k
-  T* sg = sx + 2 * kStage;             // [2][32][kLdT]: rows x n
-  T* sg2 = sg + 2 * kStage;
-
-  auto load = [&](int stage, int r0) {
-    for (int c = threadIdx.x; c < kTcBK * kBN / 8; c += kTcThreads) {
-      const int r = c / (kBN / 8), cc = (c % (kBN / 8)) * 8;
-      const int row = r0 + r, k = k0 + cc, n = n0 + cc;
-      const bool in = row < hi, okx = in && k < K, okg = in && n < N;
-      const int o = stage * kStage + r * kLdT + cc;
-      cp_async16(sx + o, okx ? x + (size_t)row * K + k : x, okx);
-      cp_async16(sg + o, okg ? g + (size_t)row * N + n : g, okg);
-      if (two) cp_async16(sg2 + o, okg ? g2 + (size_t)row * N + n : g2, okg);
-    }
-    cp_async_commit();
-  };
-
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], acc2[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      wmma::fill_fragment(acc2[i][j], 0.f);
-    }
-
-  const int nr = (hi - lo + kTcBK - 1) / kTcBK;
-  if (nr > 0) load(0, lo);
-  for (int rt = 0; rt < nr; ++rt) {
-    if (rt + 1 < nr) {
-      load((rt + 1) & 1, lo + (rt + 1) * kTcBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* tx = sx + (rt & 1) * kStage;
-    const T* tg = sg + (rt & 1) * kStage;
-    const T* tg2 = sg2 + (rt & 1) * kStage;
-#pragma unroll
-    for (int kk = 0; kk < kTcBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], tx + kk * kLdT + wm + 16 * i, kLdT);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], tg + kk * kLdT + wn + 16 * j, kLdT);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      if (two) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], tg2 + kk * kLdT + wn + 16 * j, kLdT);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc2[i][j], fa[i], fb[j], acc2[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* sc = reinterpret_cast<float*>(smem);  // [kBM][kLdC], then the second
-  float* sc2 = sc + kBM * kLdC;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int o = (wm + 16 * i) * kLdC + wn + 16 * j;
-      wmma::store_matrix_sync(sc + o, acc[i][j], kLdC, wmma::mem_row_major);
-      if (two) wmma::store_matrix_sync(sc2 + o, acc2[i][j], kLdC, wmma::mem_row_major);
-    }
-  __syncthreads();
-  const size_t base = (size_t)e * K * N;
-  for (int idx = threadIdx.x; idx < kBM * kBN; idx += kTcThreads) {
-    const int r = idx / kBN, c = idx % kBN;
-    const int k = k0 + r, n = n0 + c;
-    if (k < K && n < N) {
-      const size_t i = base + (size_t)k * N + n;
-      p.out[i] = from_f<T>(sc[r * kLdC + c]);
-      if (two) p.out2[i] = from_f<T>(sc2[r * kLdC + c]);
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kSimtThreads) moe_bwd_tn_simt_kernel(TnArgs<T> p) {
   __shared__ __align__(16) float sx[kSimtBK][kLdS];  // [row][k]
@@ -437,41 +228,25 @@ __global__ void __launch_bounds__(kSimtThreads) moe_bwd_tn_simt_kernel(TnArgs<T>
 }
 
 template <typename T>
-int launch_nt(int route, const NtArgs<T>& p, cudaStream_t stream) {
+int launch_nt(const NtArgs<T>& p, cudaStream_t stream) {
   const dim3 grid((p.M + kBM - 1) / kBM + p.E, (p.N + kBN - 1) / kBN);
-  if (route == 0) {
-    if constexpr (sizeof(T) == 2) {
-      moe_bwd_nt_wmma_kernel<T><<<grid, kTcThreads, 0, stream>>>(p);
-    } else {
-      return cudaErrorInvalidValue;  // no fp32 tensor-core route
-    }
-  } else {
-    moe_bwd_nt_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(p);
-  }
+  moe_bwd_nt_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch_tn(int route, const TnArgs<T>& p, cudaStream_t stream) {
+int launch_tn(const TnArgs<T>& p, cudaStream_t stream) {
   const dim3 grid((p.N + kBN - 1) / kBN, (p.K + kBM - 1) / kBM, p.E);
-  if (route == 0) {
-    if constexpr (sizeof(T) == 2) {
-      moe_bwd_tn_wmma_kernel<T><<<grid, kTcThreads, 0, stream>>>(p);
-    } else {
-      return cudaErrorInvalidValue;
-    }
-  } else {
-    moe_bwd_tn_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(p);
-  }
+  moe_bwd_tn_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 bool bad_common(int route, int M, int d, int ff, int E) {
-  return M <= 0 || d <= 0 || ff <= 0 || E <= 0 || E > 65535 || route < 0 || route > 2;
+  return M <= 0 || d <= 0 || ff <= 0 || E <= 0 || E > 65535 || route < 1 || route > 2;
 }
 
 template <typename T>
-int dh(int route, const void* dy, const void* w_down, const void* offs, const void* pa,
+int dh(const void* dy, const void* w_down, const void* offs, const void* pa,
        const void* pb, void* da, void* db, void* h, int M, int d, int ff, int E, int mode,
        cudaStream_t s) {
   NtArgs<T> p{};
@@ -489,11 +264,11 @@ int dh(int route, const void* dy, const void* w_down, const void* offs, const vo
   p.da = static_cast<T*>(da);
   p.db = static_cast<T*>(db);
   p.h = static_cast<T*>(h);
-  return launch_nt<T>(route, p, s);
+  return launch_nt<T>(p, s);
 }
 
 template <typename T>
-int dx(int route, const void* da, const void* w_gate, const void* db, const void* w_up,
+int dx(const void* da, const void* w_gate, const void* db, const void* w_up,
        const void* offs, void* out, int M, int d, int ff, int E, cudaStream_t s) {
   NtArgs<T> p{};
   const bool glu = da != nullptr;
@@ -509,11 +284,11 @@ int dx(int route, const void* da, const void* w_gate, const void* db, const void
   p.E = E;
   p.mode = 0;
   p.out = static_cast<T*>(out);
-  return launch_nt<T>(route, p, s);
+  return launch_nt<T>(p, s);
 }
 
 template <typename T>
-int dw(int route, const void* x, const void* g, const void* g2, const void* offs, void* out,
+int dw(const void* x, const void* g, const void* g2, const void* offs, void* out,
        void* out2, int M, int K, int N, int E, cudaStream_t s) {
   TnArgs<T> p{};
   p.x = static_cast<const T*>(x);
@@ -526,12 +301,12 @@ int dw(int route, const void* x, const void* g, const void* g2, const void* offs
   p.K = K;
   p.N = N;
   p.E = E;
-  return launch_tn<T>(route, p, s);
+  return launch_tn<T>(p, s);
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16; route: 0 wmma, 1 simt, 2 wgmma
+// dtype: 0 fp32, 1 bf16, 2 fp16; route: 1 simt, 2 wgmma
 // (moe_experts_sm90.cu; bf16 and fp16).
 
 // dH = dY w_down[e]^T with the activation's backward in the epilogue:
@@ -548,10 +323,10 @@ extern "C" int moe_bwd_dh_launch(int dtype, int route, const void* dy, const voi
     return moe_sm90_nt(dtype, dy, w_down, nullptr, nullptr, offs, M, d, ff, E, mode, nullptr, pa,
                        pb, da, db, h, s);
   switch (dtype) {
-    case 0: return dh<float>(route, dy, w_down, offs, pa, pb, da, db, h, M, d, ff, E, mode, s);
+    case 0: return dh<float>(dy, w_down, offs, pa, pb, da, db, h, M, d, ff, E, mode, s);
     case 1:
-      return dh<__nv_bfloat16>(route, dy, w_down, offs, pa, pb, da, db, h, M, d, ff, E, mode, s);
-    case 2: return dh<__half>(route, dy, w_down, offs, pa, pb, da, db, h, M, d, ff, E, mode, s);
+      return dh<__nv_bfloat16>(dy, w_down, offs, pa, pb, da, db, h, M, d, ff, E, mode, s);
+    case 2: return dh<__half>(dy, w_down, offs, pa, pb, da, db, h, M, d, ff, E, mode, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -570,9 +345,9 @@ extern "C" int moe_bwd_dx_launch(int dtype, int route, const void* da, const voi
                        nullptr, nullptr, nullptr, s);
   }
   switch (dtype) {
-    case 0: return dx<float>(route, da, w_gate, db, w_up, offs, out, M, d, ff, E, s);
-    case 1: return dx<__nv_bfloat16>(route, da, w_gate, db, w_up, offs, out, M, d, ff, E, s);
-    case 2: return dx<__half>(route, da, w_gate, db, w_up, offs, out, M, d, ff, E, s);
+    case 0: return dx<float>(da, w_gate, db, w_up, offs, out, M, d, ff, E, s);
+    case 1: return dx<__nv_bfloat16>(da, w_gate, db, w_up, offs, out, M, d, ff, E, s);
+    case 2: return dx<__half>(da, w_gate, db, w_up, offs, out, M, d, ff, E, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -587,9 +362,9 @@ extern "C" int moe_bwd_dw_launch(int dtype, int route, const void* x, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2) return moe_sm90_tn(dtype, x, g, g2, offs, out, out2, M, K, N, E, s);
   switch (dtype) {
-    case 0: return dw<float>(route, x, g, g2, offs, out, out2, M, K, N, E, s);
-    case 1: return dw<__nv_bfloat16>(route, x, g, g2, offs, out, out2, M, K, N, E, s);
-    case 2: return dw<__half>(route, x, g, g2, offs, out, out2, M, K, N, E, s);
+    case 0: return dw<float>(x, g, g2, offs, out, out2, M, K, N, E, s);
+    case 1: return dw<__nv_bfloat16>(x, g, g2, offs, out, out2, M, K, N, E, s);
+    case 2: return dw<__half>(x, g, g2, offs, out, out2, M, K, N, E, s);
     default: return cudaErrorInvalidValue;
   }
 }

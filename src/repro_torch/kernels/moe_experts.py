@@ -7,8 +7,8 @@ through XLA's autodiff of it, so they replace no TPU kernel.  On Hopper
 they are the hand-written CUDA kernels of ``csrc/moe_experts_sm90.cu``
 (the ``"wgmma"`` route of bf16/fp16: one TMA + wgmma grouped-GEMM
 mainloop for the forward and the backward), and of ``csrc/moe_experts.cu``
-and, for the backward, ``csrc/moe_experts_bwd.cu`` (the ``"wmma"`` and
-``"simt"`` routes; launched by
+and, for the backward, ``csrc/moe_experts_bwd.cu`` (the ``"simt"``
+route; launched by
 :func:`repro_torch.kernels.ops.moe_experts` and
 :func:`~repro_torch.kernels.ops.moe_experts_backward`).  This module holds
 their plain PyTorch versions, :func:`moe_experts_plain` and

@@ -83,8 +83,8 @@ LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
 FLASH_ROUTES = {"wgmma": 0, "simt": 0}
 LANE_ROUTES = {"smem": 0, "global": 0}
 TCAM_ROUTES = {"staged": 0, "tiled": 0}
-MOE_ROUTES = {"wgmma": 0, "wmma": 0, "simt": 0}
-MOE_BWD_ROUTES = {"wgmma": 0, "wmma": 0, "simt": 0}
+MOE_ROUTES = {"wgmma": 0, "simt": 0}
+MOE_BWD_ROUTES = {"wgmma": 0, "simt": 0}
 MLA_ROUTES = {"mma": 0, "simt": 0}
 COUNTS = (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES, MOE_ROUTES,
           MOE_BWD_ROUTES, MLA_ROUTES)  # every tally above
@@ -919,12 +919,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # --------------------------------------------------------------------- #
 # The MoE experts' grouped products.
 # --------------------------------------------------------------------- #
-_MOE_ROUTE_IDS = {"wmma": 0, "simt": 1, "wgmma": 2}
-# The tensor-core routes: "wgmma" (csrc/moe_experts_sm90.cu, TMA + wgmma)
-# and the older "wmma" (cp.async + wmma fragments), kept as the in-run
-# yardstick of the first and reached only by ``_route=``.  Both take the
-# same calls.
-_MOE_TC_ROUTES = ("wgmma", "wmma")
+# The C entry points' route ids: "simt" (fp32 FMAs) and "wgmma", the
+# tensor-core route (csrc/moe_experts_sm90.cu, TMA + wgmma).
+_MOE_ROUTE_IDS = {"simt": 1, "wgmma": 2}
 
 
 def _moe_route(dtype: torch.dtype, d: int, ff: int,
@@ -949,14 +946,14 @@ def _moe_mode(act: str, glu: bool) -> int:
 
 def _moe_pick_route(dtype, d: int, ff: int, tensors, forced) -> str:
     """The route of one call: ``forced`` (``_route=``) or the best the
-    tensors' real pointers allow; a forced tensor-core route (``"wgmma"``
-    or ``"wmma"``) they do not allow raises."""
+    tensors' real pointers allow; a forced ``"wgmma"`` they do not allow
+    raises."""
     best = _moe_route(dtype, d, ff, all(
         t.data_ptr() % 16 == 0 for t in tensors if t is not None))
     route = forced or best
     if route not in _MOE_ROUTE_IDS:
         raise ValueError(f"unknown moe_experts route {route!r}")
-    if route in _MOE_TC_ROUTES and best not in _MOE_TC_ROUTES:
+    if route == "wgmma" and best != "wgmma":
         raise ValueError(f"the {route} route needs bf16/fp16, d and ff "
                          f"multiples of 8 and 16-byte aligned tensors "
                          f"({dtype}, d {d}, ff {ff})")
@@ -1073,8 +1070,8 @@ def moe_experts(xs: torch.Tensor, offs: torch.Tensor, w_gate,
     :func:`moe_experts_backward`; under ``no_grad`` the two launches are
     all.  On the CPU it is the plain version under plain autograd.
     ``_route`` forces a route, forward and backward (tests and
-    ``chip_smoke.py``; a forced ``"wgmma"`` or ``"wmma"`` the shapes do not
-    allow raises).
+    ``chip_smoke.py``; a forced ``"wgmma"`` the shapes do not allow
+    raises).
     On ``meta`` (the dry run) it is
     :func:`~repro_torch.kernels.moe_experts.moe_experts_meta`: the shape,
     ``xs`` ``[M, d]`` or ``[G, M, d]``, and the work of the rows."""
@@ -1111,7 +1108,7 @@ def moe_experts_backward(dy: torch.Tensor, xs: torch.Tensor,
     On the card ``saved`` is ``(a, b)``, the products the forward kept
     (``[M, ff]``, ``a`` None without a gate), and four kernels launch
     (``csrc/moe_experts_sm90.cu`` on the ``"wgmma"`` route,
-    ``csrc/moe_experts_bwd.cu`` on the others): dh (``dY w_down^T`` with the
+    ``csrc/moe_experts_bwd.cu`` on ``"simt"``): dh (``dY w_down^T`` with the
     activation's backward in its epilogue), dx, and dw for the gate and up
     weights, then for the down weights; counted once in
     ``LAUNCHES["moe_experts_backward"]`` and ``MOE_BWD_ROUTES``.  The host

@@ -8,7 +8,8 @@ The counterpart of ``repro/models/blocks.py``:
     ``"mlp"``; a layer's params say which it has).  With ``cfg.mla`` the
     attention is multi-head latent attention, whose cache is one latent a
     token (``mla_block_prefill`` / ``mla_block_decode``), and the first
-    ``first_k_dense`` layers keep a dense MLP;
+    ``first_k_dense`` layers keep a dense MLP.  ``paged_block_decode`` is
+    either kind's decode step against a paged pool;
   * vlm-cross: gated cross attention and a gated MLP (llama-3.2-vision);
   * mLSTM / sLSTM: the xLSTM blocks (matrix / scalar memory, exp gating);
   * Mamba2: the SSD block (causal conv, then the SSM through the chunked
@@ -157,6 +158,30 @@ def mla_block_decode(p, cfg: ModelConfig, x, cache, position):
     x = x + o
     h = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     return x + dense_block_ffn(p, cfg, h), {"latent": lat}
+
+
+def paged_block_decode(p, cfg: ModelConfig, x, k_pool, v_pool,
+                       slots: L.PageSlots, *, tally=None, marks=None):
+    """x ``[B, 1, d]`` against one layer's pages, the new token's K/V
+    written into ``k_pool`` / ``v_pool`` ``[P, page, Hkv, hd]`` in place
+    (with ``cfg.mla``: its latent into ``k_pool`` ``[P, page, 1, r +
+    rope]``, ``v_pool`` None).  With ``marks`` (a list), the host's clock
+    is appended around the paged kernel, after the attention, inside the
+    MoE (see ``moe_ffn``) and after the FFN."""
+    h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    if _is_mla(cfg):
+        o = L.mla_paged_decode(p["attn"], cfg, h, k_pool, slots, marks=marks)
+    else:
+        o = L.attention_paged_decode(p["attn"], cfg, h, k_pool, v_pool,
+                                     slots, marks=marks)
+    x = x + o
+    if marks is not None:
+        marks.append(clock())
+    h = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    x = x + dense_block_ffn(p, cfg, h, tally=tally, marks=marks)
+    if marks is not None:
+        marks.append(clock())
+    return x
 
 
 def dense_cache_spec(cfg: ModelConfig, batch: int, max_len: int):

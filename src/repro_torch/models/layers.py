@@ -18,11 +18,14 @@ as einsums over the head axis.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as K
+from repro_torch.telemetry.spans import clock
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -282,6 +285,44 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, position):
     return _out_proj(p, o), cache_k, cache_v
 
 
+class PageSlots(NamedTuple):
+    """Where one paged decode step's tokens sit, shared by its layers:
+    each token's ``positions [B]`` (int64), the page ``pids [B]`` and the
+    ``offset [B]`` in it that its K/V (or latent) is written at, and the
+    ``tables [B, maxp]`` and ``seq_lens [B]`` (int32) the paged kernels
+    read."""
+
+    positions: torch.Tensor
+    pids: torch.Tensor
+    offset: torch.Tensor
+    tables: torch.Tensor
+    seq_lens: torch.Tensor
+
+
+def attention_paged_decode(p, cfg: ModelConfig, x, k_pool, v_pool,
+                           slots: PageSlots, *, marks=None):
+    """Single-token decode against one layer's paged K/V pools ``[P,
+    page, Hkv, hd]``: project, RoPE, write each token's K/V into its page
+    slot in place, :func:`repro_torch.kernels.ops.paged_attention` over
+    the block table, project out: ``out [B, 1, d]``.  With ``marks`` (a
+    list), the host's clock is appended before and after the paged
+    kernel."""
+    b = x.shape[0]
+    pos = slots.positions[:, None]
+    q, k, v = _project_qkv(p, cfg, x)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    k_pool[slots.pids, slots.offset] = k[:, 0]
+    v_pool[slots.pids, slots.offset] = v[:, 0]
+    if marks is not None:
+        marks.append(clock())
+    o = K.paged_attention(q[:, 0], k_pool, v_pool, slots.tables,
+                          slots.seq_lens)  # [B, Hq, hd]
+    if marks is not None:
+        marks.append(clock())
+    return _out_proj(p, o.reshape(b, 1, -1))
+
+
 def _attend(q, cache_k, cache_v, position):
     """q ``[B, 1, Hq, hd]`` against the caches ``[B, S, Hkv, hd]``, keys
     past ``position`` masked, softmax in fp32: ``[B, 1, Hq, hd]`` fp32."""
@@ -485,6 +526,28 @@ def mla_decode(p, cfg: ModelConfig, x, cache_lat, position):
     w = torch.softmax(logits.masked_fill(~valid[:, None, :], -1e30), -1)
     o = torch.einsum("bhk,bkc->bhc", w, cache_lat[..., :r].float())
     return mla_absorbed_out(p, cfg, o.to(x.dtype)), cache_lat
+
+
+def mla_paged_decode(p, cfg: ModelConfig, x, lat_pool, slots: PageSlots, *,
+                     marks=None):
+    """Single-token absorbed MLA against one layer's paged latent pool
+    ``[P, page, 1, r + rope]``: the absorbed query, each token's latent
+    written into its page slot in place,
+    :func:`repro_torch.kernels.ops.paged_mla_attention` at
+    :func:`mla_scale` over the block table, the absorbed output: ``out
+    [B, 1, d]``.  ``marks`` as :func:`attention_paged_decode`'s."""
+    pos = slots.positions[:, None]
+    q = mla_absorbed_query(p, cfg, x, pos)  # [B, H, r + rope]
+    lat_pool[slots.pids, slots.offset] = mla_latent(p, cfg, x, pos)
+    if marks is not None:
+        marks.append(clock())
+    o = K.paged_mla_attention(
+        q, lat_pool.view(lat_pool.shape[0], lat_pool.shape[1], -1),
+        slots.tables, slots.seq_lens, dv=cfg.mla.kv_lora_rank,
+        scale=mla_scale(cfg))
+    if marks is not None:
+        marks.append(clock())
+    return mla_absorbed_out(p, cfg, o)
 
 
 # --------------------------------------------------------------------- #

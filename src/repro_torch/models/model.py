@@ -11,6 +11,14 @@ interface:
     prefill(params, batch)             -> (cache, last_logits)
     decode_step(params, cache, batch)  -> (logits, cache)
 
+and, for serving the dense and moe families from a paged pool (MIND's,
+``repro_torch.serving.engine.PagedServer``):
+
+    paged_layout()                     -> the pool's per-token layout
+    paged_rows(cache)                  -> a prefill cache as pool rows
+    paged_decode_step(params, k_pool, v_pool, tokens, lengths,
+                      block_tables, page_tokens=...)  -> logits
+
 Families: dense and moe (a stack of transformer blocks), audio (the same
 stack over summed codebook embeddings with sinusoidal positions, one head
 per codebook), vlm (groups of self-attention blocks, each followed by a
@@ -572,6 +580,92 @@ class LM:
                           (i,))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x)[:, 0], cache
+
+    # ------------------------------------------------------------------ #
+    # Paged decode (the dense and moe families: per-layer KV).
+    # ------------------------------------------------------------------ #
+    def paged_layout(self) -> dict:
+        """One token's slot in a paged pool, as ``PagedKVPool``'s keywords
+        ``num_kv_heads``, ``head_dim``, ``dtype`` and ``latent``: K and V
+        of every KV head, or with ``cfg.mla`` one latent ``[1, r + rope]``
+        and no V; in the compute dtype."""
+        cfg = self.cfg
+        mla = B._is_mla(cfg)
+        return dict(num_kv_heads=1 if mla else cfg.num_kv_heads,
+                    head_dim=(cfg.mla.latent_dim if mla
+                              else cfg.resolved_head_dim),
+                    dtype=L._dtype(cfg.compute_dtype), latent=mla)
+
+    def paged_rows(self, cache):
+        """The first sequence of a ``prefill`` cache as the rows a paged
+        pool takes: ``(k, v)`` ``[L, S, Hkv, hd]``, or with ``cfg.mla``
+        ``(latent [L, S, 1, r + rope], None)``."""
+        layers = cache["layers"]
+        if B._is_mla(self.cfg):
+            return layers["latent"][:, 0, :, None], None
+        return layers["k"][:, 0], layers["v"][:, 0]
+
+    @torch.no_grad()
+    def paged_decode_step(self, params, k_pool, v_pool, tokens, lengths,
+                          block_tables, *, page_tokens: int, tally=None,
+                          spans=None):
+        """One token for every sequence against a paged pool laid out by
+        ``paged_layout``: ``k_pool`` / ``v_pool`` ``[L, P, page_tokens,
+        Hkv, hd]`` (``v_pool`` None with ``cfg.mla``), ``tokens [B]``,
+        ``lengths [B]`` (each new token's position) and ``block_tables [B,
+        maxp]`` int32.  The new tokens' K/V are written into the pools in
+        place; returns the logits ``[B, V]``.  MoE layers add to ``tally``
+        (see ``models.moe``).
+
+        With a span recorder ``spans``, the step records after its last
+        launch, from clock reads taken between launches (so that no
+        recorder call runs between them), ``decode.embed``, per layer
+        ``decode.attn`` (holding ``decode.paged``, the paged kernel) and
+        ``decode.ffn`` (an MoE layer's holding ``decode.router``,
+        ``decode.experts`` and, with shared experts, ``decode.shared``),
+        then ``decode.head``.  Without one it reads no clock."""
+        cfg = self.cfg
+        if spans is not None:
+            marks = [clock()]
+        params = self._cast(params)
+        tokens = tokens.long()
+        x = self._embed(params, tokens[:, None])  # [B, 1, d]
+        positions = lengths.long()
+        page_idx = positions // page_tokens
+        offset = positions % page_tokens
+        pids = torch.gather(block_tables.long(), 1, page_idx[:, None])[:, 0]
+        # Each sequence covers [0, position].
+        slots = L.PageSlots(positions, pids, offset, block_tables,
+                            (lengths + 1).to(torch.int32))
+        if spans is not None:
+            marks.append(clock())
+            layers = []  # per layer, its clock reads
+        for i, lp in enumerate(params["layers"]):
+            lm = None if spans is None else [clock()]
+            x = B.paged_block_decode(
+                lp, cfg, x, k_pool[i], None if v_pool is None else v_pool[i],
+                slots, tally=tally, marks=lm)
+            if spans is not None:
+                layers.append(lm)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x[:, 0])
+        if spans is not None:
+            # Per layer: its start, the paged kernel's start and end, the
+            # attention's end, an MoE's routing, experts' and shared
+            # experts' ends, the FFN's end.
+            marks.append(clock())
+            spans.add("decode.embed", marks[0], marks[1])
+            for t0, p0, p1, t1, *inner, t2 in layers:
+                spans.add("decode.attn", t0, t1)
+                spans.add("decode.paged", p0, p1)
+                spans.add("decode.ffn", t1, t2)
+                for name, a, z in zip(("decode.router", "decode.experts",
+                                       "decode.shared"), [t1] + inner,
+                                      inner):
+                    spans.add(name, a, z)
+            spans.add("decode.head", layers[-1][-1] if layers else marks[1],
+                      marks[-1])
+        return logits
 
 
 def _heads(x, w, heads: int, hd: int):

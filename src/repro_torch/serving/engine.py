@@ -8,20 +8,18 @@ block table — the hand-written CUDA kernel ``kernels/csrc/paged_attention.cu``
 on the card (:func:`repro_torch.kernels.ops.paged_attention`), its plain
 PyTorch version on the CPU.
 
-Supports the dense and MoE families (per-layer KV; an MoE layer's FFN is
-``repro_torch.models.moe.moe_ffn``, whose grouped products are the
-hand-written kernels of ``kernels/csrc/moe_experts_sm90.cu`` on the card
-in bf16/fp16, ``kernels/csrc/moe_experts.cu`` in fp32).  A model with
-multi-head latent attention (``cfg.mla``, DeepSeek-V3's) is served from a
-latent pool: a page holds one ``[page, 1, r + rope]`` latent array per
-layer and no V; prefill writes each token's latent, and the decode step
-runs the attention in absorbed form through
-:func:`repro_torch.kernels.ops.paged_mla_attention`
-(``kernels/csrc/paged_mla.cu``).  Allocation, prefix sharing, S->M and
-copy-on-write go through MIND as for K/V pages.
-Scheduler: admit-until-full continuous batching with page-granular
-allocation, exactly as the reference schedules.  The engine runs on CUDA
-unless the caller passes ``device="cpu"``.
+Supports the dense and MoE families (per-layer KV).  The model owns what
+a page holds and the step's arithmetic: ``LM.paged_layout`` gives the
+pool's layout of a token, ``LM.paged_rows`` the rows a prefill cache
+writes into pages, and ``LM.paged_decode_step`` the decode step (its MoE
+layers' grouped products the hand-written kernels of
+``kernels/csrc/moe_experts_sm90.cu`` on the card in bf16/fp16).  A model
+with multi-head latent attention keeps one latent a token and layer and
+no V, read by :func:`repro_torch.kernels.ops.paged_mla_attention`.
+Allocation, prefix sharing, S->M and copy-on-write go through MIND
+whatever a page holds.  Scheduler: admit-until-full continuous batching
+with page-granular allocation, exactly as the reference schedules.  The
+engine runs on CUDA unless the caller passes ``device="cpu"``.
 
 On a CUDA device the decode step replays a CUDA graph: ``_decode_fn``
 keeps one graph of the eager step ``_decode_step`` per (batch, padded
@@ -42,11 +40,11 @@ whose children are ``admit`` (one ``prefill`` per request, carrying its
 id, with ``prefill.model``, ``prefill.pages`` and ``prefill.first_token``),
 ``page_room``, ``batch_build``, ``decode.dispatch`` (the ``_decode_fn``
 call, holding ``decode.replay`` — the copies into the graph's inputs and
-the replay — or ``decode.capture``, or on the eager path
-``decode.embed``, per layer ``decode.attn`` with ``decode.paged`` around
-the paged kernel and ``decode.ffn`` (an MoE layer's holding
-``decode.router``, ``decode.experts`` and, with shared experts,
-``decode.shared``), then ``decode.head``),
+the replay — or ``decode.capture``, or on the eager path the spans of
+``LM.paged_decode_step``: ``decode.embed``, per layer ``decode.attn``
+with ``decode.paged`` around the paged kernel and ``decode.ffn`` (an MoE
+layer's holding ``decode.router``, ``decode.experts`` and, with shared
+experts, ``decode.shared``), then ``decode.head``),
 ``decode.sync`` (the host's read of the argmax) and ``retire``; and each
 request carries its :class:`~repro_torch.telemetry.spans.Stamps`.  The
 counters ``decode.graph_capture``, ``decode.graph_replay`` and
@@ -73,8 +71,6 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
 from repro_torch.memory.paged_pool import PagedKVPool
-from repro_torch.models import blocks as B
-from repro_torch.models import layers as L
 from repro_torch.models.model import LM
 from repro_torch.telemetry.spans import Stamps, clock
 
@@ -115,7 +111,6 @@ class PagedServer:
         if cfg.family not in ("dense", "moe"):
             raise ValueError("the paged serving path takes the per-layer-KV "
                              "families (dense, moe)")
-        self.mla = getattr(cfg, "mla", None)
         self.device = resolve_device(device, "PagedServer")
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the server "
@@ -133,14 +128,10 @@ class PagedServer:
             num_layers=cfg.num_layers,
             num_pages=num_pages,
             page_tokens=page_tokens,
-            num_kv_heads=1 if self.mla else cfg.num_kv_heads,
-            head_dim=(self.mla.latent_dim if self.mla
-                      else cfg.resolved_head_dim),
-            dtype=L._dtype(cfg.compute_dtype),
             num_replicas=num_replicas,
             device=self.device,
             spans=spans,
-            latent=self.mla is not None,
+            **model.paged_layout(),
         )
         # moe.slots, moe.experts_touched: decode's, then prefill's.
         self._moe_tally = (torch.zeros(4, dtype=torch.int64,
@@ -204,14 +195,7 @@ class PagedServer:
         cache, logits = self.model.prefill(
             self.params, {"tokens": tokens}, spans=sp,
             moe_tally=None if tally is None else tally[2:])
-        if self.mla:
-            # cache["layers"]["latent"]: [L, 1, S, r + rope]
-            k = cache["layers"]["latent"][:, 0, :, None]  # [L, S, 1, r+rope]
-            v = None
-        else:
-            # cache["layers"]: k/v [L, 1, S, Hkv, hd]
-            k = cache["layers"]["k"][:, 0]  # [L, S, H, hd]
-            v = cache["layers"]["v"][:, 0]
+        k, v = self.model.paged_rows(cache)
         if sp is not None:
             sp.begin("prefill.pages", sp.end())
         pt = self.page_tokens
@@ -307,92 +291,15 @@ class PagedServer:
                     counts[key] = n
         return _Graph(graph, *static, logits, tallies)
 
-    @torch.no_grad()
     def _decode_step(self, params, k_pool, v_pool, tokens, lengths,
                      block_tables, sp=None):
-        """The eager decode step (``_decode_fn``'s contract), recording
-        its embedding, layer and head spans in ``sp`` when given."""
-        cfg = self.cfg
-        model = self.model
-        mla = self.mla
-        tally = None if self._moe_tally is None else self._moe_tally[:2]
-        if sp is not None:
-            marks = [clock()]
-        params = model._cast(params)
-        tokens = tokens.long()
-        x = model._embed(params, tokens[:, None])  # [B,1,d]
-        positions = lengths.long()
-        page_idx = positions // self.page_tokens
-        offset = positions % self.page_tokens
-        pids = torch.gather(block_tables.long(), 1, page_idx[:, None])[:, 0]
-        seq_lens = (lengths + 1).to(torch.int32)  # seq covers [0, pos]
-        b = x.shape[0]
-        if sp is not None:
-            marks.append(clock())
-            layers = []  # per layer: its clock reads, the FFN's inner ones
-        for i, lp in enumerate(params["layers"]):
-            if sp is not None:
-                lm, inner = [clock()], []
-            hn = L.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-            if mla:
-                kp = k_pool[i]  # [P, page, 1, r + rope], contiguous
-                q = L.mla_absorbed_query(lp["attn"], cfg, hn,
-                                         positions[:, None])
-                kp[pids, offset] = L.mla_latent(lp["attn"], cfg, hn,
-                                                positions[:, None])
-                if sp is not None:
-                    lm.append(clock())
-                o = K.paged_mla_attention(
-                    q, kp.view(kp.shape[0], kp.shape[1], -1), block_tables,
-                    seq_lens, dv=mla.kv_lora_rank, scale=L.mla_scale(cfg))
-                if sp is not None:
-                    lm.append(clock())
-                x = x + L.mla_absorbed_out(lp["attn"], cfg, o)
-            else:
-                kp, vp = k_pool[i], v_pool[i]  # [P, page, H, hd], contiguous
-                q, k, v = L._project_qkv(lp["attn"], cfg, hn)
-                q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
-                k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
-                # Write the new token's KV into its page slot.
-                kp[pids, offset] = k[:, 0]
-                vp[pids, offset] = v[:, 0]
-                if sp is not None:
-                    lm.append(clock())
-                o = K.paged_attention(q[:, 0], kp, vp, block_tables,
-                                      seq_lens)  # [B, Hq, hd]
-                if sp is not None:
-                    lm.append(clock())
-                x = x + L._out_proj(lp["attn"], o.reshape(b, 1, -1))
-            if sp is not None:
-                lm.append(clock())
-            hn = L.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + B.dense_block_ffn(lp, cfg, hn, tally=tally,
-                                      marks=None if sp is None else inner)
-            if sp is not None:
-                lm.append(clock())
-                layers.append((lm, inner))
-        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        logits = model._logits(params, x[:, 0])
-        if sp is not None:
-            # The call's spans are recorded after its last launch, from
-            # the clock reads kept in `marks` and `layers`, so that no
-            # recorder call runs between launches: the embedding's start
-            # and end; per layer its start, the paged kernel's start and
-            # end, the attention half's end, the FFN's end, and inside an
-            # MoE FFN the routing's, the experts' and the shared experts'
-            # ends; the head's end.
-            marks.append(clock())
-            sp.add("decode.embed", marks[0], marks[1])
-            for (t0, p0, p1, t1, t2), inner in layers:
-                sp.add("decode.attn", t0, t1)
-                sp.add("decode.paged", p0, p1)
-                sp.add("decode.ffn", t1, t2)
-                for name, a, z in zip(("decode.router", "decode.experts",
-                                       "decode.shared"), [t1] + inner,
-                                      inner):
-                    sp.add(name, a, z)
-            sp.add("decode.head", layers[-1][0][-1] if layers else marks[1],
-                   marks[-1])
+        """The eager decode step (``_decode_fn``'s contract): the model's
+        ``paged_decode_step``, recording its spans in ``sp`` when given."""
+        logits = self.model.paged_decode_step(
+            params, k_pool, v_pool, tokens, lengths, block_tables,
+            page_tokens=self.page_tokens,
+            tally=None if self._moe_tally is None else self._moe_tally[:2],
+            spans=sp)
         return logits, k_pool, v_pool
 
     # ------------------------------------------------------------------ #

@@ -137,3 +137,34 @@ def test_every_system_replays_on_both_engines(system):
     assert results[0].stats == results[1].stats
     assert results[0].stats.accesses == 4 * 40
     assert results[0].runtime_us == results[1].runtime_us
+
+
+def _code_without_docstrings(path: Path) -> ast.Module:
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return tree
+
+
+def test_paged_server_knows_no_attention_kind():
+    """The paged server leaves what a page holds and the decode step to
+    the model: ``serving/engine.py`` imports neither ``models.layers`` nor
+    ``models.blocks``, and its code (comments and docstrings aside) names
+    no ``mla`` and no ``latent``."""
+    tree = _code_without_docstrings(PKG / "serving" / "engine.py")
+    banned = {"repro_torch.models.layers", "repro_torch.models.blocks"}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names = {node.module or ""} | {f"{node.module}.{a.name}"
+                                           for a in node.names}
+        else:
+            continue
+        assert not names & banned, (node.lineno, names & banned)
+    code = ast.unparse(tree).lower()
+    assert "mla" not in code and "latent" not in code

@@ -995,7 +995,6 @@ def _moe_case(name, dtype, device, glu):
 
 MOE_ROUTE_CASES = [
     ("wgmma", torch.bfloat16), ("wgmma", torch.float16),
-    ("wmma", torch.bfloat16), ("wmma", torch.float16),
     ("simt", torch.float32), ("simt", torch.bfloat16)]
 
 
@@ -1009,7 +1008,7 @@ def test_moe_experts_routes_equal_plain(cuda, name, route, dtype, glu, act):
     group (zeros), no host sync inside the call, and two calls bit for
     bit."""
     args = _moe_case(name, dtype, cuda, glu)
-    if route in ("wgmma", "wmma") and ops._moe_route(
+    if route == "wgmma" and ops._moe_route(
             dtype, *MOE_CASES[name][1:]) != "wgmma":
         with pytest.raises(ValueError, match=route):
             ops.moe_experts(*args, act, _route=route)
@@ -1092,15 +1091,14 @@ def test_moe_experts_raise_instead_of_falling_back(cuda, monkeypatch):
             return 700  # cudaErrorIllegalAddress
 
     args = _moe_case("empty-groups", torch.bfloat16, cuda, True)
-    for route in ("wgmma", "wmma"):  # fp32 has no tensor-core route
-        with pytest.raises(ValueError, match=route):
-            ops.moe_experts(*(a.float() if a.dtype == torch.bfloat16 else a
-                              for a in args), "silu", _route=route)
+    with pytest.raises(ValueError, match="wgmma"):  # not for fp32
+        ops.moe_experts(*(a.float() if a.dtype == torch.bfloat16 else a
+                          for a in args), "silu", _route="wgmma")
     with pytest.raises(ValueError):  # offs left on the CPU
         ops.moe_experts(args[0], args[1].cpu(), *args[2:], "silu")
     monkeypatch.setattr(ops, "_lib", Broken())
     before = (dict(ops.LAUNCHES), dict(ops.MOE_ROUTES))
-    for route in ("wgmma", "wmma", "simt", None):
+    for route in ("wgmma", "simt", None):
         with pytest.raises(RuntimeError, match="moe_experts"):
             ops.moe_experts(*args, "silu", _route=route)
     assert (ops.LAUNCHES, ops.MOE_ROUTES) == before
@@ -1132,10 +1130,10 @@ def test_moe_server_on_cuda_equals_cpu(cuda, monkeypatch):
                          routes, srv.graph_stats)
     (cs, ctok, cr, _), (gs, gtok, gr, gg) = out["cpu"], out[str(cuda)]
     assert gs == cs and gtok == ctok
-    assert cr == {"wgmma": 0, "wmma": 0, "simt": 0}
+    assert cr == {"wgmma": 0, "simt": 0}
     # Every layer of every prefill and decode step ran the MoE kernels,
     # the decode steps' through their graphs' replays.
-    assert gr == {"wgmma": 0, "wmma": 0,
+    assert gr == {"wgmma": 0,
                   "simt": cfg.num_layers * (len(tails) + gs["steps"])}
     assert gg["eager"] == 0 and gg["replays"] > 0
     assert gg["captures"] + gg["replays"] == gs["steps"]
@@ -1254,7 +1252,7 @@ def test_train_step_on_cuda_equals_cpu(cuda, monkeypatch, arch, layers,
                          + [t for t, _ in adamw.leaves({"p": p, "o": o})])
         bwd = {k: ops.MOE_BWD_ROUTES[k] - before[k] for k in before}
         moe_calls = cfg.num_layers * 2 if impl and dev == cuda else 0
-        assert bwd == {"wgmma": 0, "wmma": 0, "simt": moe_calls}
+        assert bwd == {"wgmma": 0, "simt": moe_calls}
     for c, g in zip(out["cpu"], out[str(cuda)], strict=True):
         assert g.device.type == "cuda" and g.dtype == c.dtype
         torch.testing.assert_close(g.detach().cpu(), c.detach(), rtol=1e-4,
@@ -1306,7 +1304,7 @@ def test_moe_experts_backward_routes_equal_plain(cuda, name, route, dtype,
     args = _moe_case(name, dtype, cuda, glu)
     dy = torch.randn(args[0].shape, generator=torch.Generator(
         device=cuda).manual_seed(7), device=cuda).to(dtype)
-    if route in ("wgmma", "wmma") and ops._moe_route(
+    if route == "wgmma" and ops._moe_route(
             dtype, *MOE_CASES[name][1:]) != "wgmma":
         with pytest.raises(ValueError, match=route):
             _moe_grads(args, act, dy, route)
@@ -1335,8 +1333,7 @@ def test_moe_experts_backward_routes_equal_plain(cuda, name, route, dtype,
 def test_moe_experts_backward_routes_by_real_pointers(cuda):
     """Under no_grad the forward launches as before and keeps nothing;
     under autograd the same launch count and a gradient; an unaligned dy
-    sends the backward to the SIMT route (a forced wgmma or wmma
-    raises)."""
+    sends the backward to the SIMT route (a forced wgmma raises)."""
     args = _moe_case("empty-groups", torch.bfloat16, cuda, True)
     ins = [a.clone().requires_grad_() if a.is_floating_point() else a
            for a in args]
@@ -1357,10 +1354,9 @@ def test_moe_experts_backward_routes_by_real_pointers(cuda):
     assert ops.MOE_BWD_ROUTES == dict(bwd, simt=bwd["simt"] + 1)
     want = moe_experts_backward_plain(dy, *args, "silu")[0]
     _grad_close(got, want, torch.bfloat16)
-    for route in ("wgmma", "wmma"):
-        forced = ops.moe_experts(*ins, "silu", _route=route)
-        with pytest.raises(ValueError, match=route):
-            torch.autograd.grad(forced, [ins[0]], dy)
+    forced = ops.moe_experts(*ins, "silu", _route="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        torch.autograd.grad(forced, [ins[0]], dy)
     # A strided dy is made contiguous.
     strided = torch.empty((d, m), device=cuda, dtype=torch.bfloat16).t()
     strided.copy_(dy)
@@ -1378,7 +1374,7 @@ def test_moe_experts_backward_raises_instead_of_falling_back(cuda,
     ins = [a.clone().requires_grad_() if a.is_floating_point() else a
            for a in args]
     outs = {route: ops.moe_experts(*ins, "silu", _route=route)
-            for route in (None, "wgmma", "wmma", "simt")}
+            for route in (None, "wgmma", "simt")}
     monkeypatch.setattr(ops, "_lib", Broken())
     before = (dict(ops.LAUNCHES), dict(ops.MOE_BWD_ROUTES))
     for out in outs.values():

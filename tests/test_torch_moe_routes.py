@@ -5,8 +5,8 @@ is held here on the CPU for the widths of the configs the port serves and
 trains, the CUDA tests' shapes, misaligned pointers and forced routes.
 The rule: bf16/fp16 with ``d`` and ``ff`` multiples of 8 and every tensor
 16-byte aligned (what TMA takes) go to ``"wgmma"``; everything else, fp32
-always, to ``"simt"``; ``"wmma"`` only when forced, on the calls
-``"wgmma"`` takes.
+always, to ``"simt"``.  A forced route must be one of the two, and a
+forced ``"wgmma"`` must be one the call allows.
 """
 
 import pytest
@@ -67,21 +67,20 @@ def _tensors(dtype, d=64, ff=96, e=3, m=10, offset=0):
 def test_pick_route_by_real_pointers(dtype):
     aligned = _tensors(dtype)
     assert ops._moe_pick_route(dtype, 64, 96, aligned, None) == "wgmma"
-    for forced in ("wgmma", "wmma", "simt"):
+    for forced in ("wgmma", "simt"):
         assert ops._moe_pick_route(dtype, 64, 96, aligned, forced) == forced
     shifted = _tensors(dtype, offset=1)  # 2 bytes off: not 16-byte aligned
     assert shifted[0].data_ptr() % 16
     assert ops._moe_pick_route(dtype, 64, 96, shifted, None) == "simt"
     assert ops._moe_pick_route(dtype, 64, 96, shifted, "simt") == "simt"
-    for forced in ("wgmma", "wmma"):
-        with pytest.raises(ValueError, match=f"the {forced} route needs"):
-            ops._moe_pick_route(dtype, 64, 96, shifted, forced)
+    with pytest.raises(ValueError, match="the wgmma route needs"):
+        ops._moe_pick_route(dtype, 64, 96, shifted, "wgmma")
     # A missing gate (None) is not a tensor to align.
     assert ops._moe_pick_route(dtype, 64, 96, (*aligned[:3], None),
                                None) == "wgmma"
 
 
-@pytest.mark.parametrize("forced", ["wgmma", "wmma"])
+@pytest.mark.parametrize("forced", ["wgmma"])
 def test_forced_tensor_core_route_the_shapes_refuse_raises(forced):
     with pytest.raises(ValueError, match=forced):
         ops._moe_pick_route(torch.bfloat16, 20, 36,
@@ -91,15 +90,16 @@ def test_forced_tensor_core_route_the_shapes_refuse_raises(forced):
                             _tensors(torch.float32), forced)
 
 
-def test_unknown_route_raises():
+@pytest.mark.parametrize("forced", ["cutlass", "wmma"])
+def test_unknown_route_raises(forced):
     with pytest.raises(ValueError, match="unknown moe_experts route"):
         ops._moe_pick_route(torch.bfloat16, 64, 96,
-                            _tensors(torch.bfloat16), "cutlass")
+                            _tensors(torch.bfloat16), forced)
 
 
 def test_route_tallies_name_every_route():
     assert set(ops.MOE_ROUTES) == set(ops.MOE_BWD_ROUTES) == set(
-        ops._MOE_ROUTE_IDS) == {"wgmma", "wmma", "simt"}
+        ops._MOE_ROUTE_IDS) == {"wgmma", "simt"}
     ops.MOE_ROUTES["wgmma"] += 1
     ops.MOE_BWD_ROUTES["wgmma"] += 1
     ops.reset_launches()
