@@ -16,8 +16,13 @@ The counterpart of ``repro/memory/paged_pool.py``:
     the directory, invalidates other sharers, and triggers copy-on-write
     of the physical page — the paper's protocol driving a serving cache.
 
-The MIND wiring (the MMU from ``make_mmu`` and the ``ControlPlane``) is the
-port's copy of ``repro.core``, unchanged; each coherence access goes
+The MIND wiring (the MMU and the ``ControlPlane``) is the port's copy of
+``repro.core``, built by ``mind_index.make_indexed_mmu`` as ``make_mmu``
+builds it, but with three indexed tables: the TCAM protection table, the
+region directory's ``entries_in`` and the blades' page caches'
+``invalidate_region`` reach a page's rules, regions and cached pages by
+key rather than by a scan of the rack.  Their state, order included,
+equals the plain tables' after every call.  Each coherence access goes
 through the scalar MMU (``mmu.handle``).  Token writes and the
 copy-on-write page copy are in-place slice assignments into the pools
 (the JAX version rebuilt the arrays).
@@ -28,7 +33,8 @@ the control plane's ``sys_mmap``, and ``pool.coherence``, a prefix hit's
 directory read), ``pool.free`` (child ``pool.munmap``), ``pool.write``
 (children ``pool.coherence``, the directory write, and ``pool.cow_copy``,
 with the copy's own ``pool.alloc`` and ``pool.free``), ``pool.read`` and
-``pool.tokens``.
+``pool.tokens``; the counter ``pool.table_scans`` counts the calls on which
+an indexed table fell back to a scan.
 """
 
 from __future__ import annotations
@@ -38,9 +44,9 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.control_plane import ControlPlane
-from repro_torch.core.switch import make_mmu
 from repro_torch.core.types import PAGE_SIZE, AccessType, MemAccess, Perm
 from repro_torch.device import resolve_device
+from repro_torch.memory.mind_index import make_indexed_mmu
 
 
 @dataclass
@@ -70,7 +76,6 @@ class PagedKVPool:
         if latent and num_kv_heads != 1:
             raise ValueError("a latent pool holds one latent a token "
                              "(num_kv_heads=1)")
-        self.spans = spans
         self.shape = (num_layers, num_pages, page_tokens, num_kv_heads,
                       head_dim)
         self.page_tokens = page_tokens
@@ -85,14 +90,28 @@ class PagedKVPool:
                   num_compute_blades=max(1, num_replicas),
                   cache_bytes_per_blade=64 << 20)
         kw.update(mind_kw or {})
-        self.mmu, self.allocator = make_mmu(**kw)
+        self.mmu, self.allocator = make_indexed_mmu(**kw)
         self.cp = ControlPlane(self.mmu, self.allocator)
+        self.spans = spans
 
         self._free: list[int] = list(range(num_pages - 1, -1, -1))
         self._pages: dict[int, PageRef] = {}
         self._prefix_index: dict[tuple, int] = {}  # prefix key -> page_id
         self.stats = {"alloc": 0, "free": 0, "prefix_hits": 0, "cow": 0,
                       "invalidations": 0}
+
+    @property
+    def spans(self):
+        return self._spans
+
+    @spans.setter
+    def spans(self, rec) -> None:
+        """The recorder of the pool's spans, and of its tables' scans."""
+        self._spans = rec
+        engine = self.mmu.engine
+        for table in (self.mmu.protection, engine.directory,
+                      *engine.caches.values()):
+            table.spans = rec
 
     # ------------------------------------------------------------------ #
     # Allocation (control plane).

@@ -125,6 +125,9 @@ def test_every_port_module_is_copied_trimmed_or_ported():
               "models/chunked_attention.py", "models/moe.py",
               "models/linear_recurrence.py",
               "memory/__init__.py", "memory/paged_pool.py",
+              # The port's own: the pool's indexed MIND tables (subclasses
+              # of the copied ones).
+              "memory/mind_index.py",
               "serving/__init__.py", "serving/engine.py",
               "launch/__init__.py", "launch/serve.py", "launch/train.py",
               "optim/adamw.py", "optim/compression.py",
