@@ -51,6 +51,16 @@ exits nonzero):
               MoE counters exact (prefill slots 3 x 6 x the prompts'
               tokens, decode slots 3 x 6 x the decode rows).  Its widest
               decode call is recorded for phase 4.
+   serve_kda — the same traffic on kimi-linear-48b-a3b at its published
+              widths and depth (20 KDA layers, 7 MLA layers of 32 heads
+              without rotary positions; 256 experts top-8, 1 shared)
+              holding routed experts 0-127 (one chip of two by expert
+              parallelism; bf16, 51.1 GB): the hard checks of serve,
+              every decode step 20 kda_decode launches and 7
+              paged_mla_attention launches on its 32-head tile
+              (ops.MLA_HEAD_TILES), graph replays counted, every MoE
+              call on wgmma, the held experts' slots counted.  Its
+              launches are the kernels line's for both Kimi-Linear rows.
    moe      — moe_ffn (ragged and capacity) against its plain version
               (the experts walked one by one) on layer 0's recorded
               inputs (the widest decode step, the first prefill) in bf16
@@ -278,6 +288,13 @@ come last.
 serve_mla, moonlight's paged_vs_dense and the paged_mla_attention row of
 phase 4, each with its hard checks, one JSON line each.
 
+`python3 chip_smoke.py --kda` runs the Kimi-Linear path alone: phase
+serve_kda, then the kernels' rows of paged_mla_attention at 32 heads
+(mla32_kernel_row) and kda_decode (kda_kernel_row), each held to its
+plain version and timed beside its bound, their launches those of the
+serve_kda run, in one kernels line (the default run puts both rows in
+its own).
+
 `python3 chip_smoke.py --moe-launches` times each launch of the MoE
 experts' forward and backward alone, warm, at train (d)'s shapes on the
 wgmma route (moe_launch_times), and prints one JSON line.
@@ -364,12 +381,19 @@ SERVE = dict(requests=16, prompt_len=500, shared_prefix=256, max_new=64,
              max_batch=8, page_tokens=16)
 # serve_mla holds moonlight-16b-a3b at its published widths cut to 4 of
 # its 27 layers (1 dense, 3 MoE: 3.7 GB in bf16) and 4,096 latent pages
-# (0.30 GB).
+# (0.30 GB).  serve_kda holds kimi-linear-48b-a3b at its published widths
+# and depth with one chip's share of a two-chip expert-parallel deployment
+# (routed experts 0-127 of 256: 51.1 GB in bf16), 4,096 latent pages over
+# its 7 MLA layers (0.07 GB) and max_batch state slots of its 20 KDA
+# layers (0.34 GB).
 SERVES = {"serve": dict(SERVE, arch="qwen3-4b", num_pages=4096),
           "serve_moe": dict(SERVE, arch="moonshot-v1-16b-a3b",
                             num_pages=1024, param_dtype="bfloat16"),
           "serve_mla": dict(SERVE, arch="moonlight-16b-a3b", num_pages=4096,
-                            param_dtype="bfloat16", layers=4)}
+                            param_dtype="bfloat16", layers=4),
+          "serve_kda": dict(SERVE, arch="kimi-linear-48b-a3b",
+                            num_pages=4096, param_dtype="bfloat16",
+                            experts_held=(0, 128))}
 # Phase paged_vs_dense: each serving model at full width in fp32, moonshot
 # cut to 4 of its 48 layers (8.9 GB of fp32 experts; all 48 are 112 GB),
 # moonlight to 4 of its 27 (7.4 GB).
@@ -484,10 +508,23 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/paged_mla.cu",
         replaces="none: no TPU kernel (the JAX package has no latent "
                  "attention)"),
+    # The same at 32 heads (Kimi-Linear's latent layers): the kernel
+    # paged_mla_mma_kernel_h32, two head tiles in one CTA.
+    "paged_mla_attention_h32": dict(
+        source="src/repro_torch/kernels/csrc/paged_mla.cu",
+        replaces="none: no TPU kernel (the JAX package has no latent "
+                 "attention)"),
+    # Kimi Delta Attention's decode update on the state slots: the JAX
+    # package has no such layer.  Reported at the Kimi-Linear cell's
+    # decode shapes, fp32.
+    "kda_decode": dict(
+        source="src/repro_torch/kernels/csrc/kda_decode.cu",
+        replaces="none: no TPU kernel (the JAX package has no KDA layer)"),
 }
 # Kernels with no TPU counterpart (a kernel of the port alone).
 NO_TPU_KERNEL = ("moe_experts", "moe_experts_backward",
-                 "paged_mla_attention")
+                 "paged_mla_attention", "paged_mla_attention_h32",
+                 "kda_decode")
 # paged_mla_attention in 16 bits rounds P and its output to the input
 # type, each a relative error of at most 2^-8 in bf16: it is held to the
 # plain version in fp32 within MLA_BAR times the largest output of the
@@ -1048,8 +1085,12 @@ def serve_setup(scale: float, compute_dtype: str = "bfloat16",
     if scale < 1:
         cfg = reduced_config(cfg)
         s.update(prompt_len=40, shared_prefix=16, max_new=6, num_pages=512)
-    elif s.get("layers"):
-        cfg = dataclasses.replace(cfg, num_layers=s["layers"])
+    else:
+        if s.get("layers"):
+            cfg = dataclasses.replace(cfg, num_layers=s["layers"])
+        if s.get("experts_held"):
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, experts_held=s["experts_held"]))
     cfg = dataclasses.replace(
         cfg, compute_dtype=compute_dtype,
         param_dtype=param_dtype or s.get("param_dtype", cfg.param_dtype))
@@ -1097,6 +1138,12 @@ def attn_kernel(cfg) -> str:
             else "paged_attention")
 
 
+def kda_layers(cfg) -> int:
+    """Layers of ``cfg`` with Kimi Delta Attention (no paged cache)."""
+    kda = getattr(cfg, "kda", None)
+    return len(kda.layers) if kda is not None else 0
+
+
 def moe_layers(cfg) -> int:
     """Layers of ``cfg`` with an MoE FFN (past its dense leading ones)."""
     if cfg.moe is None:
@@ -1104,9 +1151,18 @@ def moe_layers(cfg) -> int:
     return cfg.num_layers - getattr(cfg, "first_k_dense", 0)
 
 
+def kda_launches(serve_kda: dict) -> dict:
+    """The serve_kda run's launches of the Kimi-Linear kernels' rows: its
+    32-head paged_mla_attention calls and its kda_decode calls."""
+    return {"paged_mla_attention_h32": serve_kda["mla_head_tiles"]["h32"],
+            "kda_decode": serve_kda["launches"]["kda_decode"]}
+
+
 def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
-    """Phases serve, serve_moe and serve_mla: PagedServer on the cell's
-    model at full width.  Returns the phase line, the recorded arguments of
+    """Phases serve, serve_moe, serve_mla and serve_kda: PagedServer on the
+    cell's model at full width (serve_kda's decode launches kda_decode
+    once a KDA layer and paged_mla_attention, on its 32-head tile, once an
+    MLA layer, graph replays counted).  Returns the phase line, the recorded arguments of
     its widest decode call's paged kernel (``paged_attention``'s, or
     ``paged_mla_attention``'s with its ``dv`` and ``scale`` last) and, for
     an MoE model, its first MoE layer's inputs (``moe_ffn``'s input at the
@@ -1155,6 +1211,8 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
     # a capture runs nothing) for phase 4.
     kname = attn_kernel(cfg)
     n_moe = moe_layers(cfg)
+    n_kda = kda_layers(cfg)
+    n_attn = cfg.num_layers - n_kda  # the layers with a paged cache
     widest = {"key": -1, "args": None, "calls": 0}
     inner_pa = getattr(ops, kname)
     capturing = (torch.cuda.is_current_stream_capturing
@@ -1162,7 +1220,7 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
 
     def recorder(*args, **kw):
         bt = args[-2]
-        if (widest["calls"] % cfg.num_layers == 0 and not capturing()
+        if (widest["calls"] % n_attn == 0 and not capturing()
                 and bt.numel() >= widest["key"]):
             widest["key"] = bt.numel()
             widest["args"] = tuple(a.clone() for a in args) + (
@@ -1203,6 +1261,7 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
     flash_routes = dict(ops.FLASH_ROUTES)
     moe_routes = dict(ops.MOE_ROUTES)
     mla_routes = dict(ops.MLA_ROUTES)
+    head_tiles = dict(ops.MLA_HEAD_TILES)
     counters = srv.moe_counters()
 
     done = sorted(srv.finished, key=lambda r: r.rid)
@@ -1211,17 +1270,34 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         raise AssertionError("not every request generated its tokens")
     if not all(0 <= tok < cfg.vocab_size for g in gen for tok in g):
         raise AssertionError("a generated token is outside the vocabulary")
-    if gen[0] != gen[1]:
-        raise AssertionError("identical prompts generated different tokens")
+    # Identical prompts generate identical tokens.  serve_kda's only up to
+    # its first (its prefill's, one request at a time): the latent
+    # kernel's split cuts the batch's pages laid end to end into equal
+    # runs (csrc/paged_mla.cu), so two equal sequences in other rows are
+    # summed in other pieces and may round apart by an ulp, which 27
+    # chaotic layers (random weights, sigmoid routing) carry into another
+    # token; the line keeps how many leading tokens agreed.
+    agree = next((i for i, (a, b) in enumerate(zip(gen[0], gen[1]))
+                  if a != b), len(gen[0]))
+    if agree < (1 if n_kda else len(gen[0])):
+        raise AssertionError(f"identical prompts generated different "
+                             f"tokens from token {agree}")
     in_use = srv.pool.pages_in_use
     if not (stats["prefix_hits"] > 0 and stats["cow"] >= 1 and in_use == 0):
         raise AssertionError(f"paging stats {stats}, pages in use {in_use}")
     steps = stats["steps"]
     if device.type == "cuda" and not (
-            launches[kname] == steps * cfg.num_layers > 0):
+            launches[kname] == steps * n_attn > 0):
         raise AssertionError(f"{kname} launched {launches[kname]} times in "
-                             f"{steps} decode steps of {cfg.num_layers} "
+                             f"{steps} decode steps of {n_attn} attending "
                              f"layers")
+    if device.type == "cuda" and n_kda and not (
+            launches["kda_decode"] == steps * n_kda
+            and head_tiles[f"h{cfg.num_heads}"] == steps * n_attn):
+        raise AssertionError(f"kda_decode launched {launches['kda_decode']} "
+                             f"times and paged_mla_attention's head tiles "
+                             f"{head_tiles} in {steps} decode steps of "
+                             f"{n_kda} KDA and {n_attn} MLA layers")
     if (device.type == "cuda" and kname == "paged_mla_attention"
             and mla_routes["mma"] != launches[kname]):
         raise AssertionError(f"bf16 paged_mla_attention routes "
@@ -1253,20 +1329,25 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         # whole prompt, a decode step one row a request, each request's
         # rows after its first token.
         k = cfg.moe.top_k
+        # With experts held elsewhere only the held ones' slots run.
         want = {"prefill.moe.slots": n_moe * k * len(prompts)
                 * s["prompt_len"],
                 "decode.moe.slots": n_moe * k * len(prompts)
                 * (s["max_new"] - 1)}
+        held = getattr(cfg.moe, "experts_held", None)
+        lo, hi = held or (0, cfg.moe.num_experts)
         touched = counters["prefill.moe.experts_touched"] + counters[
             "decode.moe.experts_touched"]
-        if ({n: counters[n] for n in want} != want or not 0 < touched
-                <= cfg.moe.num_experts * moe_calls):
+        slots_ok = all((0 < counters[n] < v) if held else counters[n] == v for n, v in want.items())
+        if not slots_ok or not 0 < touched <= (hi - lo) * moe_calls:
             raise AssertionError(f"MoE counters {counters}, expected "
-                                 f"{want} and 0 < experts touched <= "
-                                 f"{cfg.moe.num_experts * moe_calls}")
-    # Every layer of every prefill attends on the card's flash route, one
-    # wgmma launch each (bf16 at a built width: layers.prefill_route).
-    flash = prefill["calls"] * cfg.num_layers
+                                 f"{want} (of them, with experts held, "
+                                 f"some) and 0 < experts touched <= "
+                                 f"{(hi - lo) * moe_calls}")
+    # Every attending layer of every prefill attends on the card's flash
+    # route, one wgmma launch each (bf16 at a built width:
+    # layers.prefill_route); a KDA layer's prefill is its chunked form.
+    flash = prefill["calls"] * n_attn
     if device.type == "cuda" and not (
             launches["flash_attention"] == flash_routes["wgmma"] == flash):
         raise AssertionError(f"flash_attention launched "
@@ -1294,11 +1375,20 @@ def phase_serve(device, scale: float = 1.0, cell: str = "serve"):
         tokens_per_s=stats["tokens"] / wall,
         decode_tokens_per_s=stats["tokens"] / decode_s,
         stats=stats, pages_in_use=in_use, launches=launches,
+        identical_prompts_agree=agree,
         flash_routes=flash_routes, peak_mem_gb=peak,
         decode_profile=profile)
     if getattr(cfg, "mla", None):
         line.update(latent_dim=cfg.mla.latent_dim, mla_routes=mla_routes,
+                    mla_head_tiles=head_tiles,
                     first_k_dense=cfg.first_k_dense)
+    if n_kda:
+        line.update(kda_layers=n_kda, kda_heads=cfg.kda.num_heads,
+                    experts_held=list(cfg.moe.experts_held),
+                    state_slots_gb=(srv.pool.state_pool.numel() * 4
+                                    + srv.pool.conv_pool.numel()
+                                    * srv.pool.conv_pool.element_size())
+                    / 1e9)
     if cfg.moe is not None:
         line.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
                     d_ff_expert=cfg.moe.d_ff_expert, moe_calls=moe_calls,
@@ -1771,10 +1861,38 @@ def mla_kernel_row(device, recorded) -> dict:
                        paged_mla_plain(*f32, rdv, rscale), 1e-5)
     del f32, call, rq, rpool
 
+    row = mla_cell_row(device, 16)
+    tol = row.pop("tolerance_cell")
+    row["shape"]["serve_call"] = dict(B=rbt.shape[0], maxp=rbt.shape[1],
+                                      seq_lens=rsl.tolist())
+    return dict(
+        max_abs_err=max(row["max_abs_err_cell"], serve_err),
+        max_abs_err_serve_call=serve_err, max_abs_err_fp32=serve_err32,
+        tolerance=dict(bf16_cell=tol, bf16_serve_call=serve_tol, fp32=1e-5,
+                       bar=MLA_BAR), **row)
+
+
+def mla_cell_row(device, h: int) -> dict:
+    """``paged_mla_attention`` at the doc-qa cells' decode shapes: 32
+    sequences of ``h`` heads (16: Moonlight's, the ``paged_mla_mma_kernel``;
+    32: Kimi-Linear's, ``paged_mla_mma_kernel_h32``), latents 576 wide
+    (values the first 512), bf16, pages of 16 in a pool of 16,384, context
+    lengths the doc-qa mix's prompts (each of its 16 lengths twice) plus
+    0-217 tokens decoded, held to the plain version in fp32 within
+    ``MLA_BAR`` x the largest output and timed cold and warm beside its
+    bound (the latent pages, q and the output once, at 3.35 TB/s), the
+    plain version's time and ``scaled_dot_product_attention`` on the
+    latents gathered to dense (the library's yardstick, its gather not
+    timed)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_mla import paged_mla_plain
+
     prompts = [1359, 1488, 1583, 1667, 1747, 1828, 1912, 2001, 2097, 2205,
                2328, 2473, 2656, 2901, 3282, 4155]
     lens = [n + (7 * i) % 218 for i, n in enumerate(prompts * 2)]
-    b, h, dk, dv, page, npool = len(lens), 16, 576, 512, 16, 16384
+    b, dk, dv, page, npool = len(lens), 576, 512, 16, 16384
     maxp = (max(-(-n // page) for n in lens) + 7) // 8 * 8
     g = torch.Generator(device=device).manual_seed(0)
     pool = torch.randn((npool, page, dk), generator=g, device=device,
@@ -1790,9 +1908,10 @@ def mla_kernel_row(device, recorded) -> dict:
         return ops.paged_mla_attention(q, pool, tables, sl, dv=dv,
                                        scale=scale)
 
-    err, tol = mla_held("paged_mla_attention (bf16, cell shapes)", kernel(),
-                        paged_mla_plain(q.float(), pool.float(), tables, sl,
-                                        dv, scale))
+    launches = ops.LAUNCHES["paged_mla_attention"]
+    err, tol = mla_held(f"paged_mla_attention (bf16, cell shapes, {h} heads)",
+                        kernel(), paged_mla_plain(q.float(), pool.float(),
+                                                  tables, sl, dv, scale))
     pages = sum(-(-n // page) for n in lens)
     nbytes = (b * h * (dk + dv) + pages * page * dk) * 2
     nops = 2 * (dk + dv) * h * sum(lens)
@@ -1808,17 +1927,93 @@ def mla_kernel_row(device, recorded) -> dict:
         q[:, :, None], kv, kv[..., :dv], attn_mask=mask, scale=scale), 20,
         device)
     return dict(
-        max_abs_err=max(err, serve_err), max_abs_err_cell=err,
-        max_abs_err_serve_call=serve_err, max_abs_err_fp32=serve_err32,
-        tolerance=dict(bf16_cell=tol, bf16_serve_call=serve_tol,
-                       fp32=1e-5, bar=MLA_BAR),
+        max_abs_err_cell=err, tolerance_cell=tol,
         shape=dict(B=b, H=h, Dk=dk, Dv=dv, page=page, maxp=maxp,
-                   tokens=sum(lens), serve_call=dict(
-                       B=rbt.shape[0], maxp=rbt.shape[1],
-                       seq_lens=rsl.tolist())),
-        route=ops._mla_route(q.dtype, dk, dv), ms=cold, warm_ms=warm,
+                   tokens=sum(lens)),
+        route=ops._mla_route(q.dtype, dk, dv),
+        head_tiles=ops._mla_head_tiles(h), ms=cold, warm_ms=warm,
         bound=bound, share_cold=bound[0] / cold, share_warm=bound[0] / warm,
-        plain_ms=plain, library_ms=sdpa)
+        plain_ms=plain, library_ms=sdpa,
+        launches=ops.LAUNCHES["paged_mla_attention"] - launches)
+
+
+def mla32_kernel_row(device) -> dict:
+    """The 32-head ``paged_mla_attention`` row (Kimi-Linear's latent
+    layers): ``mla_cell_row`` at 32 heads, and fp32 (the simt route's two
+    grid rows) at 1e-5 on a cut of it."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_mla import paged_mla_plain
+
+    row = mla_cell_row(device, 32)
+    g = torch.Generator(device=device).manual_seed(1)
+    pool = torch.randn((256, 16, 576), generator=g, device=device)
+    tables = torch.randperm(256, generator=g, device=device)[:4 * 64]
+    tables = tables.reshape(4, 64).to(torch.int32)
+    q = torch.randn((4, 32, 576), generator=g, device=device) * 0.3
+    sl = torch.tensor([1, 333, 1000, 17], dtype=torch.int32, device=device)
+    err32 = held("paged_mla_attention (fp32, 32 heads)",
+                 ops.paged_mla_attention(q, pool, tables, sl, dv=512,
+                                         scale=0.07),
+                 paged_mla_plain(q, pool, tables, sl, 512, 0.07), 1e-5)
+    tol = row.pop("tolerance_cell")
+    return dict(max_abs_err=row["max_abs_err_cell"], max_abs_err_fp32=err32,
+                tolerance=dict(bf16_cell=tol, fp32=1e-5, bar=MLA_BAR), **row)
+
+
+def kda_kernel_row(device) -> dict:
+    """``kda_decode`` at the Kimi-Linear cell's decode shapes: 32
+    sequences of 32 heads, K = V = 128, on 32 of a layer's fp32 state
+    slots (in a shuffled order), held to the plain version (fp32; sums in
+    another order: 1e-5 of the largest output and state entry), timed cold
+    and warm beside its bound (``bench/mindbench/kda_bounds.py``'s bytes:
+    the state read and written once, q, k, v, g, beta in and o out once,
+    at 3.35 TB/s) and the plain version's time."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.kda_decode import kda_decode_plain
+
+    b, h, kd, vd, nslots = 32, 32, 128, 128, 32
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    q = torch.nn.functional.normalize(rand(b, h, kd), dim=-1)
+    k = torch.nn.functional.normalize(rand(b, h, kd), dim=-1)
+    v, beta = rand(b, h, vd), torch.rand((b, h), generator=g, device=device)
+    lg = -torch.rand((b, h, kd), generator=g, device=device) * 0.2
+    state = rand(nslots, h, kd, vd)
+    slots = torch.randperm(nslots, generator=g, device=device)[:b].to(
+        torch.int32)
+    scale = 1 / math.sqrt(kd)
+    want_s = state.clone()
+    want = kda_decode_plain(q, k, v, lg, beta, want_s, slots, scale)
+    launches = ops.LAUNCHES["kda_decode"]
+    got_s = state.clone()
+    got = ops.kda_decode(q, k, v, lg, beta, got_s, slots, scale=scale)
+    err = held("kda_decode (output)", got, want,
+               1e-5 * float(want.abs().max()))
+    err_s = held("kda_decode (state)", got_s, want_s,
+                 1e-5 * float(want_s.abs().max()))
+
+    def kernel():
+        return ops.kda_decode(q, k, v, lg, beta, state, slots, scale=scale)
+
+    per_head = 2 * kd * vd + 3 * kd + 2 * vd + 1
+    bound = bound_ms(4.0 * b * h * per_head, 6.0 * b * h * kd * vd)
+    cold = time_ms_cold(kernel, 50, device)
+    warm = time_ms(kernel, 200, device)
+    plain = time_ms(lambda: kda_decode_plain(q, k, v, lg, beta, state, slots,
+                                             scale), 20, device)
+    return dict(max_abs_err=max(err, err_s), max_abs_err_state=err_s,
+                tolerance="1e-5 x the largest output / state entry",
+                shape=dict(B=b, H=h, K=kd, V=vd, slots=nslots), ms=cold,
+                warm_ms=warm, bound=bound, share_cold=bound[0] / cold,
+                share_warm=bound[0] / warm, plain_ms=plain, library_ms=None,
+                launches=ops.LAUNCHES["kda_decode"] - launches)
 
 
 def moe_launch_times(device) -> dict:
@@ -4019,6 +4214,29 @@ def main() -> int:
         free_device(device)
         emit({"phase": "mla_kernel", **mla_kernel_row(device, recorded_mla)})
         return 0
+    if sys.argv[1:2] == ["--kda"]:
+        from repro_torch.kernels import ops
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        emit({"phase": "env", "device": torch.cuda.get_device_name(0),
+              "nvidia_smi": nvidia_smi_line()})
+        ops.load_library()
+        serve_kda, _, _ = phase_serve(device, cell="serve_kda")
+        emit({"phase": "serve_kda", **serve_kda})
+        free_device(device)
+        rows = {"paged_mla_attention_h32": mla32_kernel_row(device),
+                "kda_decode": kda_kernel_row(device)}
+        launches = kda_launches(serve_kda)
+        emit({"kernels": [
+            dict(name=k, route="cuda", **KERNELS[k], tpu_kernel=False,
+                 launches=launches[k], max_abs_err=r["max_abs_err"],
+                 ms=r["ms"], warm_ms=r["warm_ms"], plain_ms=r["plain_ms"],
+                 bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                 library_ms=r["library_ms"],
+                 share_of_bound=r["bound"][0] / r["ms"],
+                 tolerance=r["tolerance"], shape=r["shape"])
+            for k, r in rows.items()]})
+        return 0
     if sys.argv[1:2] == ["--prefill"]:
         from repro_torch.kernels import ops
 
@@ -4085,6 +4303,11 @@ def main() -> int:
           **serve_mla})
     free_device(device)
     t = time.perf_counter()
+    serve_kda, _, _ = phase_serve(device, cell="serve_kda")
+    emit({"phase": "serve_kda", "seconds": time.perf_counter() - t,
+          **serve_kda})
+    free_device(device)
+    t = time.perf_counter()
     moe = phase_moe(device, serve_setup(1.0, cell="serve_moe")[0], moe_rec)
     del moe_rec
     emit({"phase": "moe", "seconds": time.perf_counter() - t, **moe})
@@ -4099,6 +4322,8 @@ def main() -> int:
     del recorded, recorded_moe
     kern["paged_mla_attention"] = mla_kernel_row(device, recorded_mla)
     del recorded_mla
+    kern["paged_mla_attention_h32"] = mla32_kernel_row(device)
+    kern["kda_decode"] = kda_kernel_row(device)
     prod = moe["products"]["decode bfloat16"]
     kern["moe_experts"] = dict(
         max_abs_err=max(r["max_abs_err"] for r in moe["products"].values()),
@@ -4138,7 +4363,7 @@ def main() -> int:
         max_abs_err=max(c["max_abs_err"]
                         for c in bench["flash_attention"].values()))
     free_device(device)
-    for cell in SERVES:
+    for cell in PAGED_VS_DENSE_LAYERS:  # serve_kda has no dense decode
         emit({"phase": "paged_vs_dense",
               **phase_paged_vs_dense(device, cell=cell)})
         free_device(device)
@@ -4173,7 +4398,8 @@ def main() -> int:
     # kernel_bench (msi_transition), the serve run (paged_attention, its
     # decode; flash_attention, its prefills; serve_moe's paged_attention
     # beside it), the serve_moe run (moe_experts), train (d)
-    # (moe_experts_backward) and the serve_mla run (paged_mla_attention).
+    # (moe_experts_backward), the serve_mla run (paged_mla_attention) and
+    # the serve_kda run (paged_mla_attention's 32-head tile, kda_decode).
     launches = {**main_run["launches"], **bench_launches,
                 "paged_attention": serve["launches"]["paged_attention"],
                 "flash_attention": serve["launches"]["flash_attention"],
@@ -4181,7 +4407,8 @@ def main() -> int:
                     serve_mla["launches"]["paged_mla_attention"],
                 "moe_experts": serve_moe["launches"]["moe_experts"],
                 "moe_experts_backward":
-                    train["moe"]["moe_backward_launches"]}
+                    train["moe"]["moe_backward_launches"],
+                **kda_launches(serve_kda)}
     if not launches["moe_experts"] or not launches["moe_experts_backward"]:
         raise AssertionError(f"serve_moe or train (d) launched no MoE "
                              f"kernel: {launches}")

@@ -9,6 +9,10 @@
 * moe_experts      — the MoE experts' grouped products and their
                      backward (no TPU kernel: the JAX package leaves them
                      to XLA's ragged_dot and its autodiff)
+* paged_mla        — decode attention of multi-head latent attention over
+                     the paged latent pool, 16 or 32 heads (no TPU kernel)
+* kda_decode       — Kimi Delta Attention's one-token state update on the
+                     pool's state slots (no TPU kernel)
 
 Each kernel's CUDA source lives in ``csrc/``; its plain PyTorch version
 sits in the module of the same name, and ops.py holds the wrappers that
@@ -19,6 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ops import (
     build_transition_table,
     flash_attention,
+    kda_decode,
     lane_replay,
     moe_experts,
     msi_transition,
@@ -29,6 +34,6 @@ from repro_torch.kernels.ops import (
 )
 
 __all__ = ["ops", "build_transition_table", "flash_attention",
-           "lane_replay", "moe_experts", "msi_transition",
+           "kda_decode", "lane_replay", "moe_experts", "msi_transition",
            "msi_transition_vectorized", "paged_attention", "protect_check",
            "translate_lookup"]

@@ -7,7 +7,7 @@
 // (repro_torch.kernels.ops.paged_mla_attention; plain version
 // kernels/paged_mla.py::paged_mla_plain).
 //
-// What it computes, for each sequence b: the H (<= 16) query heads of
+// What it computes, for each sequence b: the H (<= 32) query heads of
 // q [B, H, Dk] (absorbed: q_nope W_UK^T beside the roped q_pe) attend over
 // the first seq_lens[b] latents [c ‖ k_pe] of the pages block_tables[b, 0..]
 // of the pool [P, page, Dk]; a head's key is the whole latent, its value
@@ -49,6 +49,18 @@
 //    latent at a time read from device memory (the warps' repeats hit L1),
 //    warp-shuffle dot products, fp32 FMA.  Correct and slow: the served
 //    model takes the mma route.
+//    Route "mma" at 17 to 32 heads (Kimi-Linear's 32): the kernel
+//    paged_mla_mma_kernel_h32, the same schedule and tile loop with two
+//    16-row mma tiles of heads in one CTA of 8 warps, so each latent is
+//    still read once for every head.  For S, warp w takes the 8 tokens
+//    (w & 3) of the tile against head tile w >> 2; the row maxima of all
+//    32 heads meet in shared memory and every thread keeps the running
+//    maxima of the four rows it touches, so the S and P V roles agree on
+//    them; for P V each warp owns DV/8 output columns of both head tiles
+//    (2 x 16 x DV/8 fp32 sums).  A ring of 3 tiles (two in flight),
+//    ~158 KB of shared memory, one CTA an SM (the host launches n = SMs).
+//    Route "simt" above 16 heads: a second grid row per 16 heads (each
+//    latent read once per 16 heads).
 //    Both write each segment's partial, fp32 (m, l, acc), to its slot of
 //    the workspace [n + B, H, DV + 2].
 // 2. The combine kernel, one CTA per (head, sequence): the log-sum-exp
@@ -69,6 +81,9 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps, both routes
 constexpr int kHMax = 16;      // heads of one CTA (the mma's 16 rows)
+constexpr int kH32 = 32;       // heads of one h32 CTA: two 16-row tiles
+constexpr int kThreads32 = 256;  // 8 warps of an h32 CTA
+constexpr int kStages32 = 3;   // tiles in the h32 ring
 constexpr int kTile = 32;      // tokens of one mma tile (4 warps x 8)
 constexpr int kStages = 2;     // tiles in the ring
 constexpr int kPad = 8;        // elements of padding per shared row (16 bytes)
@@ -123,6 +138,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -406,6 +422,224 @@ paged_mla_mma_kernel(const T* __restrict__ q,                  // [B, H, Dk]
 }
 
 // ---------------------------------------------------------------------- //
+// Route "mma", 17 to 32 heads: two 16-row head tiles in one CTA.
+// ---------------------------------------------------------------------- //
+__host__ __device__ constexpr size_t mma32_smem_bytes(int dk, int pmax, int B) {
+  return 2 * (static_cast<size_t>(kH32) * (dk + kPad) +
+              static_cast<size_t>(kStages32) * kTile * (dk + kPad) + static_cast<size_t>(kH32) * kPLd) +
+         sizeof(float) * 2 * 4 * kH32 + sizeof(int) * (static_cast<size_t>(pmax) + B + 1);
+}
+
+template <typename T, int DV>
+__global__ void __launch_bounds__(kThreads32, 1)
+paged_mla_mma_kernel_h32(const T* __restrict__ q,                  // [B, H, Dk]
+                         const T* __restrict__ lat,                // [P, page, Dk]
+                         const int32_t* __restrict__ block_tables, // [B, maxp]
+                         const int32_t* __restrict__ seq_lens,     // [B]
+                         float* __restrict__ ws,                   // [n + B, H, DV + 2]
+                         int B, int H, int P, int page, int dk, int maxp, int pmax, float scale_log2) {
+  constexpr int NT = DV / 64;  // n-tiles of 8 columns a warp owns (DV / 8 warps)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = dk + kPad;
+  T* qs = reinterpret_cast<T*>(smem);     // [32][ld]
+  T* ring = qs + kH32 * ld;               // [kStages32][kTile][ld]
+  T* ps = ring + kStages32 * kTile * ld;  // [32][kPLd]
+  float* red = reinterpret_cast<float*>(ps + kH32 * kPLd);  // [4][32] row maxima
+  float* lsum = red + 4 * kH32;                              // [4][32] row sums
+  int* pids = reinterpret_cast<int*>(lsum + 4 * kH32);       // [pmax]
+  int* cum = pids + pmax;                                    // [B + 1]
+
+  const int c = blockIdx.x, n = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tw = warp & 3, mt = warp >> 2;  // S: this warp's tokens and head tile
+  page_prefix(seq_lens, B, page, maxp, cum);
+  const int total = cum[B];
+  const int g0 = cta_first_page(c, n, total), g1 = cta_first_page(c + 1, n, total);
+  if (g0 >= g1) return;
+  int b = 0;
+  while (cum[b + 1] <= g0) ++b;
+  for (; b < B && cum[b] < g1; ++b) {
+    const int p_begin = max(g0, cum[b]) - cum[b], p_end = min(g1, cum[b + 1]) - cum[b];
+    if (p_begin >= p_end) continue;  // a sequence without pages
+    const int seq_len = seq_lens[b];
+    __syncthreads();  // the previous segment is done with q, the ids and the ring
+    const int t_begin = p_begin * page, t_end = p_end * page;
+    const int ntiles = (t_end - t_begin + kTile - 1) / kTile;
+    const int cpr = dk / 8;
+
+    const T* qb = q + static_cast<int64_t>(b) * H * dk;
+    for (int u = tid; u < kH32 * cpr; u += kThreads32) {
+      const int row = u / cpr, ch = u - row * cpr;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (row < H) v = *reinterpret_cast<const uint4*>(qb + row * dk + ch * 8);
+      *reinterpret_cast<uint4*>(qs + row * ld + ch * 8) = v;
+    }
+    const int32_t* bt = block_tables + static_cast<int64_t>(b) * maxp + p_begin;
+    for (int j = tid; j < p_end - p_begin; j += kThreads32) pids[j] = min(max(bt[j], 0), P - 1);
+    __syncthreads();
+
+    // Tile k's latents into stage k % kStages32, each warp 4 rows; past the
+    // last tile an empty group, so that "all but the newest group" is
+    // always tile k.
+    auto issue = [&](int k) {
+      if (k < ntiles) {
+        T* st = ring + (k % kStages32) * kTile * ld;
+        for (int tok = warp * 4; tok < warp * 4 + 4; ++tok) {
+          const int tk = k * kTile + tok;
+          const bool ok = t_begin + tk < t_end;
+          const T* src = lat;
+          if (ok) {
+            const int j = tk / page;
+            src = lat + (static_cast<int64_t>(pids[j]) * page + (tk - j * page)) * dk;
+          }
+          for (int ch = lane; ch < cpr; ch += 32)
+            cp_async16(st + tok * ld + ch * 8, ok ? src + ch * 8 : lat, ok);
+        }
+      }
+      cp_async_commit();
+    };
+
+    float o[2][NT][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) o[t][nt][0] = o[t][nt][1] = o[t][nt][2] = o[t][nt][3] = 0.f;
+    const int r = lane >> 2;
+    // Running maxima of rows r, r + 8, 16 + r, 24 + r (the rows of o this
+    // thread holds; its S rows are two of them), the same in every thread.
+    float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    float l0 = 0.f, l1 = 0.f;  // sums of this thread's S rows mt*16 + r, + 8
+
+    issue(0);
+    issue(1);
+    for (int k = 0; k < ntiles; ++k) {
+      cp_async_wait_one();
+      __syncthreads();  // tile k landed for every warp; tile k - 1 is done with
+      issue(k + 2);
+      const T* tile = ring + (k % kStages32) * kTile * ld;
+
+      float sc[4][4] = {};
+      const T* kt = tile + (tw * 8 + (lane & 7)) * ld + (lane >> 3) * 8;
+      const T* qt = qs + (mt * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
+      for (int ks = 0; ks < dk; ks += 64) {
+        uint32_t bk[4], bk2[4], a[4];
+        ldsm_x4(bk, kt + ks);
+        ldsm_x4(bk2, kt + ks + 32);
+        ldsm_x4(a, qt + ks);
+        mma<T>(sc[0], a, bk[0], bk[1]);
+        ldsm_x4(a, qt + ks + 16);
+        mma<T>(sc[1], a, bk[2], bk[3]);
+        ldsm_x4(a, qt + ks + 32);
+        mma<T>(sc[2], a, bk2[0], bk2[1]);
+        ldsm_x4(a, qt + ks + 48);
+        mma<T>(sc[3], a, bk2[2], bk2[3]);
+      }
+      float s[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] = (sc[0][i] + sc[1][i]) + (sc[2][i] + sc[3][i]);
+      const int t0 = t_begin + k * kTile + tw * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = t0 + (i & 1);
+        s[i] = t >= t_end ? -INFINITY : (t >= seq_len ? kMasked : s[i] * scale_log2);
+      }
+      float x0 = fmaxf(s[0], s[1]), x1 = fmaxf(s[2], s[3]);
+      x0 = fmaxf(x0, __shfl_xor_sync(kFull, x0, 1));
+      x0 = fmaxf(x0, __shfl_xor_sync(kFull, x0, 2));
+      x1 = fmaxf(x1, __shfl_xor_sync(kFull, x1, 1));
+      x1 = fmaxf(x1, __shfl_xor_sync(kFull, x1, 2));
+      if ((lane & 3) == 0) {
+        red[tw * kH32 + mt * 16 + r] = x0;
+        red[tw * kH32 + mt * 16 + r + 8] = x1;
+      }
+      __syncthreads();
+      float a[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = (j >> 1) * 16 + (j & 1) * 8 + r;
+        float nm = m[j];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) nm = fmaxf(nm, red[w * kH32 + row]);
+        // finite: every tile holds a token of the segment, the first a live one
+        a[j] = exp2f(m[j] - nm);
+        m[j] = nm;
+      }
+      const float n0 = mt ? m[2] : m[0], n1 = mt ? m[3] : m[1];
+      const float a0 = mt ? a[2] : a[0], a1 = mt ? a[3] : a[1];
+      const float p0 = exp2f(s[0] - n0), p1 = exp2f(s[1] - n0);
+      const float p2 = exp2f(s[2] - n1), p3 = exp2f(s[3] - n1);
+      l0 = l0 * a0 + p0 + p1;
+      l1 = l1 * a1 + p2 + p3;
+      const int pc = tw * 8 + (lane & 3) * 2;
+      *reinterpret_cast<uint32_t*>(ps + (mt * 16 + r) * kPLd + pc) = pack2<T>(p0, p1);
+      *reinterpret_cast<uint32_t*>(ps + (mt * 16 + r + 8) * kPLd + pc) = pack2<T>(p2, p3);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          o[t][nt][0] *= a[2 * t];
+          o[t][nt][1] *= a[2 * t];
+          o[t][nt][2] *= a[2 * t + 1];
+          o[t][nt][3] *= a[2 * t + 1];
+        }
+      __syncthreads();  // P of every warp in shared memory
+
+      // O += P V for this warp's DV/8 columns, both head tiles.
+      const T* vt = tile + warp * (DV / 8);
+#pragma unroll
+      for (int kk = 0; kk < kTile; kk += 16) {
+        uint32_t a0f[4], a1f[4];
+        ldsm_x4(a0f, ps + (lane & 15) * kPLd + kk + (lane >> 4) * 8);
+        ldsm_x4(a1f, ps + (16 + (lane & 15)) * kPLd + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, vt + (kk + (lane & 15)) * ld + np * 16 + (lane >> 4) * 8);
+          mma<T>(o[0][2 * np], a0f, bv[0], bv[1]);
+          mma<T>(o[0][2 * np + 1], a0f, bv[2], bv[3]);
+          mma<T>(o[1][2 * np], a1f, bv[0], bv[1]);
+          mma<T>(o[1][2 * np + 1], a1f, bv[2], bv[3]);
+        }
+      }
+    }
+    cp_async_wait_all();  // the empty groups past the last tile
+
+    l0 += __shfl_xor_sync(kFull, l0, 1);
+    l0 += __shfl_xor_sync(kFull, l0, 2);
+    l1 += __shfl_xor_sync(kFull, l1, 1);
+    l1 += __shfl_xor_sync(kFull, l1, 2);
+    if ((lane & 3) == 0) {
+      lsum[tw * kH32 + mt * 16 + r] = l0;
+      lsum[tw * kH32 + mt * 16 + r + 8] = l1;
+    }
+    __syncthreads();
+    auto row = [&](int h) { return ws + (static_cast<int64_t>(c + b) * H + h) * (DV + 2); };
+    if (warp == 0 && (lane & 3) == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int h = (j >> 1) * 16 + (j & 1) * 8 + r;
+        if (h < H) {
+          row(h)[0] = m[j];
+          row(h)[1] = lsum[h] + lsum[kH32 + h] + lsum[2 * kH32 + h] + lsum[3 * kH32 + h];
+        }
+      }
+    }
+    const int c0 = 2 + warp * (DV / 8) + (lane & 3) * 2;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int h0 = t * 16 + r, h1 = h0 + 8;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (h0 < H)
+          *reinterpret_cast<float2*>(row(h0) + c0 + nt * 8) = make_float2(o[t][nt][0], o[t][nt][1]);
+        if (h1 < H)
+          *reinterpret_cast<float2*>(row(h1) + c0 + nt * 8) = make_float2(o[t][nt][2], o[t][nt][3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------- //
 // Route "simt".
 // ---------------------------------------------------------------------- //
 template <typename T>
@@ -416,7 +650,7 @@ paged_mla_simt_kernel(const T* __restrict__ q, const T* __restrict__ lat,
                       int maxp, float scale_log2) {
   constexpr int EK = kMaxDk / 32, EV = kMaxDv / 32, GW = kHMax / 4;
   extern __shared__ int cum[];  // [B + 1]
-  const int c = blockIdx.x, n = gridDim.x;
+  const int c = blockIdx.x, n = gridDim.x, h0 = blockIdx.y * kHMax;  // grid row: 16 heads
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   page_prefix(seq_lens, B, page, maxp, cum);
   const int total = cum[B];
@@ -428,11 +662,11 @@ paged_mla_simt_kernel(const T* __restrict__ q, const T* __restrict__ lat,
     const int p_begin = max(g0, cum[b]) - cum[b], p_end = min(g1, cum[b + 1]) - cum[b];
     if (p_begin >= p_end) continue;
     const int seq_len = seq_lens[b];
-    // This warp's heads: warp, warp + 4, ...
+    // This warp's heads: h0 + warp, h0 + warp + 4, ...
     float qr[GW][EK], acc[GW][EV], m[GW], l[GW];
 #pragma unroll
     for (int gi = 0; gi < GW; ++gi) {
-      const int h = warp + 4 * gi;
+      const int h = h0 + warp + 4 * gi;
       m[gi] = -INFINITY;
       l[gi] = 0.f;
 #pragma unroll
@@ -474,7 +708,7 @@ paged_mla_simt_kernel(const T* __restrict__ q, const T* __restrict__ lat,
     }
 #pragma unroll
     for (int gi = 0; gi < GW; ++gi) {
-      const int h = warp + 4 * gi;
+      const int h = h0 + warp + 4 * gi;
       if (h >= H) continue;
       float* w = ws + (static_cast<int64_t>(c + b) * H + h) * (dv + 2);
       if (lane == 0) {
@@ -566,11 +800,31 @@ int launch_mma(const void* q, const void* lat, const void* bt, const void* sl, f
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int DV>
+int launch_mma32(const void* q, const void* lat, const void* bt, const void* sl, float* ws, int B,
+                 int H, int P, int page, int dk, int maxp, int n, int pmax, float scale,
+                 cudaStream_t stream) {
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_mla_mma_kernel_h32<T, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(mma32_smem_bytes(kMaxDk, kMaxPps, kMaxB)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  const size_t smem = mma32_smem_bytes(dk, pmax, B);
+  paged_mla_mma_kernel_h32<T, DV><<<n, kThreads32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(lat), static_cast<const int32_t*>(bt),
+      static_cast<const int32_t*>(sl), ws, B, H, P, page, dk, maxp, pmax, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_simt(const void* q, const void* lat, const void* bt, const void* sl, float* ws, int B,
                 int H, int P, int page, int dk, int dv, int maxp, int n, float scale,
                 cudaStream_t s) {
-  paged_mla_simt_kernel<T><<<n, kThreads, sizeof(int) * (B + 1), s>>>(
+  const dim3 grid(n, (H + kHMax - 1) / kHMax);
+  paged_mla_simt_kernel<T><<<grid, kThreads, sizeof(int) * (B + 1), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(lat), static_cast<const int32_t*>(bt),
       static_cast<const int32_t*>(sl), ws, B, H, P, page, dk, dv, maxp, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -580,7 +834,8 @@ int launch_simt(const void* q, const void* lat, const void* bt, const void* sl, 
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q and the pool share it); route:
 // 0 mma (16-bit types, dk % 64 == 0, dv 512, q and the pool
-// 16-byte aligned), 1 simt (dk <= 576, dv <= 512).  n CTAs share the pages
+// 16-byte aligned; H <= 16 paged_mla_mma_kernel, 17 to 32
+// paged_mla_mma_kernel_h32), 1 simt (dk <= 576, dv <= 512); H <= 32.  n CTAs share the pages
 // (see the schedule above), pmax >= ceil(B * maxp / n) of them at most
 // each; ws is fp32 [n + B, H, dv + 2].
 extern "C" int paged_mla_split_launch(int dtype, int route, const void* q, const void* lat,
@@ -588,7 +843,7 @@ extern "C" int paged_mla_split_launch(int dtype, int route, const void* q, const
                                       int B, int H, int P, int page, int dk, int dv, int maxp,
                                       int n, int pmax, float scale, void* stream) {
   if (B <= 0 || H <= 0) return 0;
-  if (H > kHMax || B > kMaxB || P <= 0 || page <= 0 || dk <= 0 || dv <= 0 || dv > dk || n <= 0 ||
+  if (H > kH32 || B > kMaxB || P <= 0 || page <= 0 || dk <= 0 || dv <= 0 || dv > dk || n <= 0 ||
       n > 65535 || pmax <= 0 || pmax > kMaxPps ||
       static_cast<int64_t>(pmax) * n < static_cast<int64_t>(B) * maxp)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -596,6 +851,15 @@ extern "C" int paged_mla_split_launch(int dtype, int route, const void* q, const
   float* w = static_cast<float*>(ws);
   if (route == 0) {
     if (dk % 64 || dk > kMaxDk || dv != kMaxDv) return static_cast<int>(cudaErrorInvalidValue);
+    if (H > kHMax) {
+      if (dtype == 1)
+        return launch_mma32<__nv_bfloat16, kMaxDv>(q, lat, block_tables, seq_lens, w, B, H, P, page,
+                                                   dk, maxp, n, pmax, scale, s);
+      if (dtype == 2)
+        return launch_mma32<__half, kMaxDv>(q, lat, block_tables, seq_lens, w, B, H, P, page, dk,
+                                            maxp, n, pmax, scale, s);
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (dtype == 1)
       return launch_mma<__nv_bfloat16, kMaxDv>(q, lat, block_tables, seq_lens, w, B, H, P, page, dk,
                                                maxp, n, pmax, scale, s);

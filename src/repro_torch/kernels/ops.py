@@ -21,7 +21,9 @@ the ``flash_attention`` launches by route (:func:`_flash_route`),
 (:func:`_moe_route`; up, then down, counted once), ``MOE_BWD_ROUTES``
 the ``moe_experts_backward`` calls (its four launches counted once) and
 ``MLA_ROUTES`` the ``paged_mla_attention`` calls (split, then combine,
-counted once; :func:`_mla_route`).
+counted once; :func:`_mla_route`) and ``MLA_HEAD_TILES`` the same calls
+by their heads, up to 16 (``"h16"``) or 17 to 32 (``"h32"``;
+:func:`_mla_head_tiles`).
 ``COUNTS`` holds every tally.  A call captured into a CUDA graph launches
 nothing while it is captured; whoever replays the graph adds the tallies
 its capture made (``PagedServer``'s decode step does).
@@ -54,6 +56,7 @@ from repro_torch.kernels.directory_msi import (
     msi_transition_vectorized as _msi_vectorized,
 )
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.kda_decode import kda_decode_plain
 from repro_torch.kernels.lane_replay import lane_replay_plain
 from repro_torch.kernels.moe_experts import (
     ACTS,
@@ -79,15 +82,16 @@ _LPM_ROWS = 1 << 20  # translate keys are log2 * 2^20 + row
 LAUNCHES = {"protect_check": 0, "translate_lookup": 0, "lane_replay": 0,
             "paged_attention": 0, "msi_transition": 0, "flash_attention": 0,
             "moe_experts": 0, "moe_experts_backward": 0,
-            "paged_mla_attention": 0}
+            "paged_mla_attention": 0, "kda_decode": 0}
 FLASH_ROUTES = {"wgmma": 0, "simt": 0}
 LANE_ROUTES = {"smem": 0, "global": 0}
 TCAM_ROUTES = {"staged": 0, "tiled": 0}
 MOE_ROUTES = {"wgmma": 0, "simt": 0}
 MOE_BWD_ROUTES = {"wgmma": 0, "simt": 0}
 MLA_ROUTES = {"mma": 0, "simt": 0}
+MLA_HEAD_TILES = {"h16": 0, "h32": 0}
 COUNTS = (LAUNCHES, FLASH_ROUTES, LANE_ROUTES, TCAM_ROUTES, MOE_ROUTES,
-          MOE_BWD_ROUTES, MLA_ROUTES)  # every tally above
+          MOE_BWD_ROUTES, MLA_ROUTES, MLA_HEAD_TILES)  # every tally above
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -188,6 +192,9 @@ def _declare(lib) -> None:
                                            + [ctypes.c_float, p])
     # dtype, ws, lens, out, B H page maxp n Dv, stream
     lib.paged_mla_combine_launch.argtypes = [i, p, p, p] + [i] * 6 + [p]
+    # q k v g beta state slots out, B H K V S, scale, stream
+    lib.kda_decode_launch.argtypes = ([p] * 8 + [i] * 5
+                                      + [ctypes.c_float, p])
     # 7 inputs (table last), S, B, 5 outputs, workspace and its bytes,
     # stream
     lib.msi_transition_launch.argtypes = ([p] * 7 + [i, i] + [p] * 6
@@ -213,7 +220,7 @@ def _declare(lib) -> None:
               lib.paged_attention_split_launch,
               lib.paged_attention_combine_launch,
               lib.paged_mla_split_launch, lib.paged_mla_combine_launch,
-              lib.msi_transition_launch,
+              lib.kda_decode_launch, lib.msi_transition_launch,
               lib.flash_attention_launch, lib.flash_attention_sm90_launch,
               lib.moe_experts_launch, lib.moe_bwd_dh_launch,
               lib.moe_bwd_dx_launch, lib.moe_bwd_dw_launch):
@@ -628,20 +635,29 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 # Decode attention of MLA over the paged latent pool.
 # --------------------------------------------------------------------- #
 _MLA_ROUTE_IDS = {"mma": 0, "simt": 1}
-_MLA_HEADS = 16  # heads of one CTA (kHMax in csrc/paged_mla.cu)
+_MLA_HEADS = 32  # heads of one call (kH32 in csrc/paged_mla.cu)
+_MLA_TILE_HEADS = 16  # heads of one mma tile (kHMax there)
 _MLA_MAX_DK = 576
 _MLA_MAX_B = 1024  # kMaxB there
 _MLA_MMA_DV = 512  # the mma route's value width (MLA's kv_lora_rank)
 
 
-def _mla_ctas(b: int, maxp: int, sms: int) -> tuple[int, int]:
-    """``(n, pmax)``: the split kernel's CTAs, from shapes only (two an SM,
-    more if a CTA would otherwise hold more than ``_PA_MAX_PPS`` pages, at
-    most one a block-table entry), and the most pages one of them holds,
-    ``ceil(b * maxp / n)``."""
+def _mla_ctas(b: int, maxp: int, sms: int,
+              per_sm: int = 2) -> tuple[int, int]:
+    """``(n, pmax)``: the split kernel's CTAs, from shapes only (``per_sm``
+    an SM: two, or one for the 32-head mma kernel, whose shared memory
+    fills an SM; more if a CTA would otherwise hold more than
+    ``_PA_MAX_PPS`` pages, at most one a block-table entry), and the most
+    pages one of them holds, ``ceil(b * maxp / n)``."""
     total = max(b * maxp, 1)
-    n = min(max(2 * sms, -(-total // _PA_MAX_PPS)), total)
+    n = min(max(per_sm * sms, -(-total // _PA_MAX_PPS)), total)
     return n, -(-total // n)
+
+
+def _mla_head_tiles(h: int) -> str:
+    """``"h16"`` (one 16-row mma tile of heads a CTA: ``paged_mla_mma_kernel``)
+    or ``"h32"`` (two: ``paged_mla_mma_kernel_h32``, 17 to 32 heads)."""
+    return "h16" if h <= _MLA_TILE_HEADS else "h32"
 
 
 def _mla_route(dtype: torch.dtype, dk: int, dv: int,
@@ -660,7 +676,7 @@ def paged_mla_attention(q: torch.Tensor, latent: torch.Tensor,
     """Absorbed MLA decode attention over the paged latent pool (see
     :mod:`repro_torch.kernels.paged_mla`).
 
-    ``q`` ``[B, H, Dk]`` (``H <= 16``, ``Dk <= 576``); ``latent`` ``[P, page,
+    ``q`` ``[B, H, Dk]`` (``H <= 32``, ``Dk <= 576``); ``latent`` ``[P, page,
     Dk]`` in q's dtype (float32, bfloat16 or float16); ``block_tables`` int32
     ``[B, maxp]``; ``seq_lens`` int32 ``[B]``.  Each head's value is the
     latent's first ``dv`` entries.  Returns ``[B, H, dv]`` in q's dtype."""
@@ -697,9 +713,11 @@ def paged_mla_attention(q: torch.Tensor, latent: torch.Tensor,
     if b:
         route = _mla_route(q.dtype, dk, dv, q.data_ptr() % 16 == 0
                            and latent.data_ptr() % 16 == 0)
+        tiles = _mla_head_tiles(h)
         n, pmax = _mla_ctas(
             b, maxp,
-            torch.cuda.get_device_properties(dev).multi_processor_count)
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            1 if route == "mma" and tiles == "h32" else 2)
         # fp32 partials (m, l, acc): a slot per (CTA, sequence) segment.
         ws = torch.empty((n + b, h, dv + 2), dtype=torch.float32,
                          device=dev)
@@ -716,6 +734,53 @@ def paged_mla_attention(q: torch.Tensor, latent: torch.Tensor,
                 "paged_mla_attention (combine)")
         LAUNCHES["paged_mla_attention"] += 1
         MLA_ROUTES[route] += 1
+        MLA_HEAD_TILES[tiles] += 1
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Kimi Delta Attention's decode update on the state slots.
+# --------------------------------------------------------------------- #
+_KDA_MAX = 128  # kMaxK and kCols in csrc/kda_decode.cu
+
+
+def kda_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               g: torch.Tensor, beta: torch.Tensor, state: torch.Tensor,
+               slots: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """One KDA decode token for a batch (see
+    :mod:`repro_torch.kernels.kda_decode`): ``q``, ``k``, ``g`` ``[B, H,
+    K]``, ``v`` ``[B, H, V]``, ``beta`` ``[B, H]``, ``state`` ``[S, H, K,
+    V]`` (updated in place at the rows ``slots``, int32 ``[B]``), all fp32
+    and contiguous, ``K, V <= 128``.  Returns ``o`` ``[B, H, V]`` fp32."""
+    dev = q.device
+    for t, name, nd in ((q, "q", 3), (k, "k", 3), (v, "v", 3), (g, "g", 3),
+                        (beta, "beta", 2), (state, "state", 4)):
+        _expect(t, name, torch.float32, nd, dev)
+    _expect(slots, "slots", torch.int32, 1, dev)
+    b, h, kd = q.shape
+    sn, sh, skd, vd = state.shape
+    if (k.shape != q.shape or g.shape != q.shape or v.shape != (b, h, vd)
+            or beta.shape != (b, h) or slots.shape != (b,) or sh != h
+            or skd != kd or not 0 < kd <= _KDA_MAX or not 0 < vd <= _KDA_MAX
+            or sn == 0):
+        raise ValueError(f"kda_decode shapes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, g "
+                         f"{tuple(g.shape)}, beta {tuple(beta.shape)}, state "
+                         f"{tuple(state.shape)}, slots {tuple(slots.shape)} "
+                         f"(need K, V <= {_KDA_MAX})")
+    _int32_range(b * h, "B*H")
+    if dev.type != "cuda":
+        return kda_decode_plain(q, k, v, g, beta, state, slots, float(scale))
+    lib = load_library()
+    out = torch.empty((b, h, vd), dtype=torch.float32, device=dev)
+    if b:
+        with torch.cuda.device(dev):
+            _check(lib.kda_decode_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                beta.data_ptr(), state.data_ptr(), slots.data_ptr(),
+                out.data_ptr(), b, h, kd, vd, sn, float(scale), _stream(dev)),
+                "kda_decode")
+        LAUNCHES["kda_decode"] += 1
     return out
 
 
@@ -1190,11 +1255,11 @@ def moe_experts_backward(dy: torch.Tensor, xs: torch.Tensor,
 
 
 __all__ = [
-    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "MLA_ROUTES",
-    "MOE_BWD_ROUTES", "MOE_ROUTES", "NO_MATCH", "TCAM_ROUTES",
+    "FLASH_ROUTES", "LANE_ROUTES", "LAUNCHES", "MLA_HEAD_TILES",
+    "MLA_ROUTES", "MOE_BWD_ROUTES", "MOE_ROUTES", "NO_MATCH", "TCAM_ROUTES",
     "build_library", "build_transition_table", "flash_attention",
-    "lane_replay", "lane_smem_bytes", "load_library", "moe_experts",
-    "moe_experts_backward", "msi_transition",
+    "kda_decode", "lane_replay", "lane_smem_bytes", "load_library",
+    "moe_experts", "moe_experts_backward", "msi_transition",
     "msi_transition_vectorized", "paged_attention", "paged_mla_attention",
     "protect_check", "reset_launches", "translate_lookup",
 ]

@@ -16,6 +16,17 @@ The counterpart of ``repro/memory/paged_pool.py``:
     the directory, invalidates other sharers, and triggers copy-on-write
     of the physical page — the paper's protocol driving a serving cache.
 
+A model with recurrent layers (Kimi-Linear's KDA: ``state=``) also keeps
+``state_slots`` fixed-size **state slots** beside the pages: per slot and
+recurrent layer an fp32 state ``[H, K, V]`` (``state_pool`` ``[Ls,
+slots, H, K, V]``) and a conv tail (``conv_pool``).  A slot is one MIND
+page of the request's session: :meth:`PagedKVPool.alloc_state` maps it
+(``sys_mmap``) and makes the populating write, which leaves it in M at
+the serving blade, so the decode steps that update it in place need no
+further access; :meth:`PagedKVPool.free_state` unmaps it.  ``stats``
+then also counts ``state_alloc`` and ``state_free``.  A pool without
+``state`` allocates no slot and makes no extra MIND call.
+
 The MIND wiring (the MMU and the ``ControlPlane``) is the port's copy of
 ``repro.core``, built by ``mind_index.make_indexed_mmu`` as ``make_mmu``
 builds it, but with three indexed tables: the TCAM protection table, the
@@ -32,9 +43,13 @@ each call is a host-clock span: ``pool.alloc`` (children ``pool.mmap``,
 the control plane's ``sys_mmap``, and ``pool.coherence``, a prefix hit's
 directory read), ``pool.free`` (child ``pool.munmap``), ``pool.write``
 (children ``pool.coherence``, the directory write, and ``pool.cow_copy``,
-with the copy's own ``pool.alloc`` and ``pool.free``), ``pool.read`` and
-``pool.tokens``; the counter ``pool.table_scans`` counts the calls on which
-an indexed table fell back to a scan.
+with the copy's own ``pool.alloc`` and ``pool.free``), ``pool.read``,
+``pool.tokens``, ``pool.state_alloc`` (child ``pool.mmap``, then
+``pool.coherence``, the populating write) and ``pool.state_free`` (child
+``pool.munmap``); the counter ``pool.table_scans`` counts the calls on
+which an indexed table fell back to a scan, and ``pool.state_slots``
+reads the most state slots held at once while the recorder was
+attached.
 """
 
 from __future__ import annotations
@@ -71,7 +86,8 @@ class PagedKVPool:
                  num_kv_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.bfloat16, num_replicas: int = 1,
                  mind_kw: dict | None = None, device=None, spans=None,
-                 latent: bool = False):
+                 latent: bool = False, state: dict | None = None,
+                 state_slots: int = 0):
         device = resolve_device(device, "PagedKVPool")
         if latent and num_kv_heads != 1:
             raise ValueError("a latent pool holds one latent a token "
@@ -100,14 +116,35 @@ class PagedKVPool:
         self.stats = {"alloc": 0, "free": 0, "prefix_hits": 0, "cow": 0,
                       "invalidations": 0}
 
+        # --- Recurrent state slots (``state``: the model's
+        # ``paged_layout()["state"]``), one MIND page each.
+        self.state_pool = self.conv_pool = None
+        if state is not None:
+            self.state_pool = torch.zeros(
+                (state["layers"], state_slots, state["heads"],
+                 state["key_dim"], state["value_dim"]), dtype=torch.float32,
+                device=device)
+            self.conv_pool = torch.zeros(
+                (state["layers"], state_slots, state["conv_rows"],
+                 state["conv_width"]), dtype=dtype, device=device)
+            self.stats.update(state_alloc=0, state_free=0)
+        self._free_slots: list[int] = list(range(state_slots - 1, -1, -1))
+        self._slot_vaddr: dict[int, int] = {}  # slot -> its MIND page
+        self._slots_peak = 0
+
     @property
     def spans(self):
         return self._spans
 
     @spans.setter
     def spans(self, rec) -> None:
-        """The recorder of the pool's spans, and of its tables' scans."""
+        """The recorder of the pool's spans, and of its tables' scans; its
+        ``pool.state_slots`` starts from the slots held now."""
         self._spans = rec
+        if hasattr(self, "_slot_vaddr"):
+            self._slots_peak = len(self._slot_vaddr)
+            if rec is not None and self._slots_peak:
+                rec.count("pool.state_slots", self._slots_peak)
         engine = self.mmu.engine
         for table in (self.mmu.protection, engine.directory,
                       *engine.caches.values()):
@@ -251,6 +288,61 @@ class PagedKVPool:
             self.v_pool[:, pid, offset:offset + t] = v
         if sp is not None:
             sp.end()
+
+    # ------------------------------------------------------------------ #
+    # Recurrent state slots.
+    # ------------------------------------------------------------------ #
+    def alloc_state(self, session: int, replica: int = 0) -> int:
+        """A state slot for ``session``: one MIND page mapped for it and
+        written once (the populating write: M at ``replica``)."""
+        if self.state_pool is None:
+            raise ValueError("this pool holds no state slots")
+        if not self._free_slots:
+            raise MemoryError("state slots exhausted")
+        sp = self.spans
+        if sp is not None:
+            i = sp.begin("pool.state_alloc")
+            sp.begin("pool.mmap")
+        vma = self.cp.sys_mmap(session, PAGE_SIZE, Perm.RW,
+                               requesting_blade=replica).vma
+        if sp is not None:
+            sp.begin("pool.coherence", sp.end())
+        self.mmu.handle(MemAccess(replica, session, vma.base,
+                                  AccessType.WRITE))
+        slot = self._free_slots.pop()
+        self._slot_vaddr[slot] = vma.base
+        self.stats["state_alloc"] += 1
+        held = len(self._slot_vaddr)
+        if held > self._slots_peak:
+            if sp is not None:
+                sp.count("pool.state_slots", held - self._slots_peak)
+            self._slots_peak = held
+        if sp is not None:
+            sp.end(i)
+        return slot
+
+    def write_state(self, slot: int, state, conv) -> None:
+        """A sequence's recurrent state ``[Ls, H, K, V]`` and conv tail
+        ``[Ls, rows, width]`` into ``slot``, in place."""
+        self.state_pool[:, slot] = state
+        self.conv_pool[:, slot] = conv
+
+    def free_state(self, slot: int, session: int) -> None:
+        """Unmap ``slot``'s MIND page and return the slot."""
+        sp = self.spans
+        if sp is not None:
+            i = sp.begin("pool.state_free")
+            sp.begin("pool.munmap")
+        self.cp.sys_munmap(session, self._slot_vaddr.pop(slot))
+        self._free_slots.append(slot)
+        self.stats["state_free"] += 1
+        if sp is not None:
+            sp.end()
+            sp.end(i)
+
+    @property
+    def states_in_use(self) -> int:
+        return len(self._slot_vaddr)
 
     @property
     def pages_in_use(self) -> int:

@@ -8,8 +8,12 @@ The counterpart of ``repro/models/blocks.py``:
     ``"mlp"``; a layer's params say which it has).  With ``cfg.mla`` the
     attention is multi-head latent attention, whose cache is one latent a
     token (``mla_block_prefill`` / ``mla_block_decode``), and the first
-    ``first_k_dense`` layers keep a dense MLP.  ``paged_block_decode`` is
-    either kind's decode step against a paged pool;
+    ``first_k_dense`` layers keep a dense MLP.  With ``cfg.kda`` the
+    layers it names are Kimi Delta Attention (:mod:`repro_torch.models.kda`,
+    params under ``"kda"`` in place of ``"attn"``), whose cache is a
+    recurrent state and a conv tail a sequence (``kda_block_prefill`` /
+    ``kda_block_decode``).  ``paged_block_decode`` is the attention
+    kinds' decode step against a paged pool;
   * vlm-cross: gated cross attention and a gated MLP (llama-3.2-vision);
   * mLSTM / sLSTM: the xLSTM blocks (matrix / scalar memory, exp gating);
   * Mamba2: the SSD block (causal conv, then the SSM through the chunked
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import kda as KD
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.linear_recurrence import (
@@ -67,17 +72,28 @@ def _is_mla(cfg: ModelConfig) -> bool:
     return getattr(cfg, "mla", None) is not None
 
 
+def _has_kda(cfg: ModelConfig) -> bool:
+    return getattr(cfg, "kda", None) is not None
+
+
+def _is_kda(cfg: ModelConfig, layer: int) -> bool:
+    """Whether layer ``layer`` is Kimi Delta Attention (``cfg.kda``)."""
+    return _has_kda(cfg) and layer in cfg.kda.layers
+
+
 def dense_block_params(gen: torch.Generator, cfg: ModelConfig,
                        layer: int = 0) -> dict:
     """The params of layer ``layer``: attention (MLA where ``cfg.mla`` is
-    set), then its MLP or MoE."""
+    set, KDA under ``"kda"`` in ``cfg.kda``'s layers), then its MLP or
+    MoE."""
     dt = L._dtype(cfg.param_dtype)
-    p = {
-        "attn_norm": _zeros((cfg.d_model,), dt, gen),
-        "attn": (L.mla_params(gen, cfg) if _is_mla(cfg)
-                 else L.attention_params(gen, cfg)),
-        "mlp_norm": _zeros((cfg.d_model,), dt, gen),
-    }
+    p = {"attn_norm": _zeros((cfg.d_model,), dt, gen)}
+    if _is_kda(cfg, layer):
+        p["kda"] = KD.kda_params(gen, cfg)
+    else:
+        p["attn"] = (L.mla_params(gen, cfg) if _is_mla(cfg)
+                     else L.attention_params(gen, cfg))
+    p["mlp_norm"] = _zeros((cfg.d_model,), dt, gen)
     if _is_moe(cfg, layer):
         p["moe"] = M.moe_params(gen, cfg)
     else:
@@ -160,6 +176,39 @@ def mla_block_decode(p, cfg: ModelConfig, x, cache, position):
     return x + dense_block_ffn(p, cfg, h), {"latent": lat}
 
 
+def kda_block_prefill(p, cfg: ModelConfig, x, *, tally=None, marks=None):
+    """The KDA block over whole sequences: ``(x, {"state": [B, H, K, V],
+    "conv": [B, c - 1, 3 H K]})``.  ``marks`` as
+    :func:`mla_block_prefill`'s."""
+    h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    o, state, tail = KD.kda_prefill(p["kda"], cfg, h)
+    if marks is not None:
+        marks.append(clock())
+    x = x + o
+    h = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    x = x + dense_block_ffn(p, cfg, h, tally=tally, marks=marks)
+    if marks is not None:
+        marks.append(clock())
+    return x, {"state": state, "conv": tail}
+
+
+def kda_block_decode(p, cfg: ModelConfig, x, state, conv, slots, *,
+                     tally=None, marks=None):
+    """x ``[B, 1, d]`` through the KDA block, the rows ``slots [B]`` of
+    one layer's state slots ``[S, H, K, V]`` and conv tails updated in
+    place.  ``marks`` as :func:`paged_block_decode`'s, around the state
+    kernel in place of the paged one."""
+    h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    x = x + KD.kda_decode(p["kda"], cfg, h, state, conv, slots, marks=marks)
+    if marks is not None:
+        marks.append(clock())
+    h = L.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    x = x + dense_block_ffn(p, cfg, h, tally=tally, marks=marks)
+    if marks is not None:
+        marks.append(clock())
+    return x
+
+
 def paged_block_decode(p, cfg: ModelConfig, x, k_pool, v_pool,
                        slots: L.PageSlots, *, tally=None, marks=None):
     """x ``[B, 1, d]`` against one layer's pages, the new token's K/V
@@ -182,6 +231,16 @@ def paged_block_decode(p, cfg: ModelConfig, x, k_pool, v_pool,
     if marks is not None:
         marks.append(clock())
     return x
+
+
+def kda_cache_spec(cfg: ModelConfig, batch: int):
+    """One KDA layer's cache: ``{"state": ([B, H, K, V], fp32), "conv":
+    ([B, c - 1, 3 H K], compute dtype)}``."""
+    kc = cfg.kda
+    return {"state": ((batch, kc.num_heads, kc.head_dim, kc.head_dim),
+                      torch.float32),
+            "conv": ((batch, kc.conv_size - 1, 3 * kc.width),
+                     L._dtype(cfg.compute_dtype))}
 
 
 def dense_cache_spec(cfg: ModelConfig, batch: int, max_len: int):

@@ -431,23 +431,33 @@ def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return apply_rope(x, positions, theta)
 
 
+def _nope(cfg: ModelConfig) -> bool:
+    """Whether the ``q_pe`` / ``k_pe`` parts go unrotated
+    (``mla_use_nope``, Kimi-Linear's global layers)."""
+    return getattr(cfg, "mla_use_nope", False)
+
+
 def mla_query(p, cfg: ModelConfig, x, positions):
     """``x [B, S, d]`` -> ``(q_nope [B, S, H, nope], q_pe [B, S, H,
-    rope])``, ``q_pe`` roped."""
+    rope])``, ``q_pe`` roped (unless ``mla_use_nope``)."""
     m = cfg.mla
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, m.qk_head_dim)
     q_nope, q_pe = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    if _nope(cfg):
+        return q_nope, q_pe
     return q_nope, apply_rope_pairs(q_pe, positions, cfg.rope_theta)
 
 
 def mla_latent(p, cfg: ModelConfig, x, positions):
     """What a token leaves in the cache, ``[B, S, r + rope]``: its latent
-    ``c`` normed by ``kv_norm``, then its roped key part ``k_pe``, one for
-    all heads."""
+    ``c`` normed by ``kv_norm``, then its roped (unless ``mla_use_nope``)
+    key part ``k_pe``, one for all heads."""
     m = cfg.mla
     kva = x @ p["w_kva"]
     c = rmsnorm(kva[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    if _nope(cfg):
+        return torch.cat([c, kva[..., m.kv_lora_rank:]], -1)
     k_pe = apply_rope_pairs(kva[..., None, m.kv_lora_rank:], positions,
                             cfg.rope_theta)[..., 0, :]
     return torch.cat([c, k_pe], -1)

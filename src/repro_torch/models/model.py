@@ -16,8 +16,15 @@ and, for serving the dense and moe families from a paged pool (MIND's,
 
     paged_layout()                     -> the pool's per-token layout
     paged_rows(cache)                  -> a prefill cache as pool rows
+    paged_state(cache)                 -> a prefill cache's recurrent state
     paged_decode_step(params, k_pool, v_pool, tokens, lengths,
                       block_tables, page_tokens=...)  -> logits
+
+A config with ``kda`` (Kimi-Linear: Kimi Delta Attention in the layers
+``cfg.kda.layers``, latent attention in the others) keeps per sequence a
+recurrent state and a conv tail per KDA layer beside the latent pages of
+its MLA layers; ``loss``, ``backbone`` and ``decode_step`` refuse it
+(it serves through ``prefill`` and ``paged_decode_step``).
 
 Families: dense and moe (a stack of transformer blocks), audio (the same
 stack over summed codebook embeddings with sinusoidal positions, one head
@@ -313,6 +320,7 @@ class LM:
         ``jax.checkpoint`` sites."""
         cfg = self.cfg
         f = cfg.family
+        self._refuse_kda("backbone")
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), device=x.device)
 
@@ -389,15 +397,34 @@ class LM:
         xent = tot / torch.clamp(cnt, min=1.0)
         return xent + aux, {"xent": xent, "aux": aux}
 
+    def _refuse_kda(self, what: str) -> None:
+        if B._has_kda(self.cfg):
+            raise NotImplementedError(
+                f"LM.{what} does not take Kimi Delta Attention layers "
+                f"({self.cfg.arch_id}): serve it through prefill and "
+                f"paged_decode_step")
+
     # ------------------------------------------------------------------ #
     # Caches, prefill and decode.
     # ------------------------------------------------------------------ #
+    def _kda_split(self) -> tuple[list, list]:
+        """The layer indices that are KDA, and those that attend."""
+        kda = [i for i in range(self.cfg.num_layers)
+               if B._is_kda(self.cfg, i)]
+        return kda, [i for i in range(self.cfg.num_layers) if i not in kda]
+
     def cache_specs(self, batch: int, max_len: int) -> dict:
         """The cache as ``(shape, dtype)`` leaves, laid out as the
-        reference's ``cache_specs``."""
+        reference's ``cache_specs`` (with ``cfg.kda``: ``layers`` holds the
+        attending layers' caches and ``kda`` the KDA layers' states and
+        conv tails)."""
         cfg = self.cfg
         f = cfg.family
         dense = B.dense_cache_spec(cfg, batch, max_len)
+        if B._has_kda(cfg):
+            kda, attn = self._kda_split()
+            return {"layers": _stack(dense, len(attn)),
+                    "kda": _stack(B.kda_cache_spec(cfg, batch), len(kda))}
         if f in ("dense", "moe", "audio"):
             return {"layers": _stack(dense, cfg.num_layers)}
         if f == "vlm":
@@ -441,7 +468,9 @@ class LM:
         latent a token and layer (``{"layers": {"latent": [L, B, S, r +
         rope]}}``); its layers record, with a span recorder ``spans``,
         ``prefill.mla`` and then ``prefill.moe`` (``prefill.mlp`` for a dense
-        layer) on the host's clock.  With ``spans``, every attending layer
+        layer) on the host's clock; a KDA layer (``cfg.kda``) ``prefill.kda``
+        in place of ``prefill.mla``, its state and conv tail going to
+        ``cache["kda"]``.  With ``spans``, every attending layer
         counts ``prefill.attn_flash`` or ``prefill.attn_plain``, the route
         of its causal self-attention (``layers.prefill_route``).
         """
@@ -472,17 +501,28 @@ class LM:
             return h
 
         if f in ("dense", "moe", "audio") and B._is_mla(cfg):
-            for i, lp in enumerate(params["layers"]):
+            n_kda = n_attn = 0
+            for lp in params["layers"]:
+                kda = "kda" in lp
                 marks = None
                 if spans is not None:
-                    spans.count("prefill.attn_"
-                                + L.prefill_route(x, *widths))
+                    if not kda:
+                        spans.count("prefill.attn_"
+                                    + L.prefill_route(x, *widths))
                     marks = [clock()]
-                x, st = B.mla_block_prefill(lp, cfg, x, positions, ml,
-                                            tally=moe_tally, marks=marks)
-                _put(cache["layers"], i, st)
+                if kda:
+                    x, st = B.kda_block_prefill(lp, cfg, x, tally=moe_tally,
+                                                marks=marks)
+                    _put(cache["kda"], n_kda, st)
+                    n_kda += 1
+                else:
+                    x, st = B.mla_block_prefill(lp, cfg, x, positions, ml,
+                                                tally=moe_tally, marks=marks)
+                    _put(cache["layers"], n_attn, st)
+                    n_attn += 1
                 if spans is not None:
-                    spans.add("prefill.mla", marks[0], marks[1])
+                    spans.add("prefill.kda" if kda else "prefill.mla",
+                              marks[0], marks[1])
                     spans.add("prefill.moe" if "moe" in lp else "prefill.mlp",
                               marks[1], marks[-1])
         elif f in ("dense", "moe", "audio"):
@@ -530,6 +570,7 @@ class LM:
         cache)``; the cache is updated in place."""
         cfg = self.cfg
         f = cfg.family
+        self._refuse_kda("decode_step")
         params = self._cast(params)
         tokens = self._tokens(batch["tokens"])
         lengths = self._tokens(batch["lengths"])
@@ -588,34 +629,56 @@ class LM:
         """One token's slot in a paged pool, as ``PagedKVPool``'s keywords
         ``num_kv_heads``, ``head_dim``, ``dtype`` and ``latent``: K and V
         of every KV head, or with ``cfg.mla`` one latent ``[1, r + rope]``
-        and no V; in the compute dtype."""
+        and no V; in the compute dtype.  With ``cfg.kda`` also
+        ``num_layers`` (the attending layers alone hold pages) and
+        ``state``, a sequence's recurrent state: ``layers`` (the KDA
+        layers), ``heads``, ``key_dim``, ``value_dim`` (fp32) and
+        ``conv_rows`` x ``conv_width`` (the conv tail, compute dtype)."""
         cfg = self.cfg
         mla = B._is_mla(cfg)
-        return dict(num_kv_heads=1 if mla else cfg.num_kv_heads,
-                    head_dim=(cfg.mla.latent_dim if mla
-                              else cfg.resolved_head_dim),
-                    dtype=L._dtype(cfg.compute_dtype), latent=mla)
+        out = dict(num_kv_heads=1 if mla else cfg.num_kv_heads,
+                   head_dim=(cfg.mla.latent_dim if mla
+                             else cfg.resolved_head_dim),
+                   dtype=L._dtype(cfg.compute_dtype), latent=mla)
+        if B._has_kda(cfg):
+            kda, attn = self._kda_split()
+            kc = cfg.kda
+            out.update(num_layers=len(attn), state=dict(
+                layers=len(kda), heads=kc.num_heads, key_dim=kc.head_dim,
+                value_dim=kc.head_dim, conv_rows=kc.conv_size - 1,
+                conv_width=3 * kc.width))
+        return out
 
     def paged_rows(self, cache):
         """The first sequence of a ``prefill`` cache as the rows a paged
         pool takes: ``(k, v)`` ``[L, S, Hkv, hd]``, or with ``cfg.mla``
-        ``(latent [L, S, 1, r + rope], None)``."""
+        ``(latent [L, S, 1, r + rope], None)`` (``L`` the attending
+        layers)."""
         layers = cache["layers"]
         if B._is_mla(self.cfg):
             return layers["latent"][:, 0, :, None], None
         return layers["k"][:, 0], layers["v"][:, 0]
 
+    def paged_state(self, cache):
+        """The first sequence's recurrent state in a ``prefill`` cache of a
+        ``cfg.kda`` model, ``(state [Lk, H, K, V], conv [Lk, c - 1, 3 H
+        K])``."""
+        return cache["kda"]["state"][:, 0], cache["kda"]["conv"][:, 0]
+
     @torch.no_grad()
     def paged_decode_step(self, params, k_pool, v_pool, tokens, lengths,
                           block_tables, *, page_tokens: int, tally=None,
-                          spans=None):
+                          spans=None, state=None, slots=None):
         """One token for every sequence against a paged pool laid out by
         ``paged_layout``: ``k_pool`` / ``v_pool`` ``[L, P, page_tokens,
         Hkv, hd]`` (``v_pool`` None with ``cfg.mla``), ``tokens [B]``,
         ``lengths [B]`` (each new token's position) and ``block_tables [B,
         maxp]`` int32.  The new tokens' K/V are written into the pools in
         place; returns the logits ``[B, V]``.  MoE layers add to ``tally``
-        (see ``models.moe``).
+        (see ``models.moe``).  With ``cfg.kda``, ``state`` is the pool's
+        ``(state [Lk, S, H, K, V], conv [Lk, S, c - 1, 3 H K])`` and
+        ``slots [B]`` (int32) each sequence's row there, updated in place;
+        the pools hold the attending layers alone.
 
         With a span recorder ``spans``, the step records after its last
         launch, from clock reads taken between launches (so that no
@@ -623,7 +686,9 @@ class LM:
         ``decode.attn`` (holding ``decode.paged``, the paged kernel) and
         ``decode.ffn`` (an MoE layer's holding ``decode.router``,
         ``decode.experts`` and, with shared experts, ``decode.shared``),
-        then ``decode.head``.  Without one it reads no clock."""
+        then ``decode.head``; a KDA layer's ``decode.attn`` holds
+        ``decode.kda`` (the state kernel) in place of ``decode.paged``.
+        Without one it reads no clock."""
         cfg = self.cfg
         if spans is not None:
             marks = [clock()]
@@ -635,18 +700,27 @@ class LM:
         offset = positions % page_tokens
         pids = torch.gather(block_tables.long(), 1, page_idx[:, None])[:, 0]
         # Each sequence covers [0, position].
-        slots = L.PageSlots(positions, pids, offset, block_tables,
+        pages = L.PageSlots(positions, pids, offset, block_tables,
                             (lengths + 1).to(torch.int32))
         if spans is not None:
             marks.append(clock())
             layers = []  # per layer, its clock reads
-        for i, lp in enumerate(params["layers"]):
+        n_kda = n_attn = 0
+        for lp in params["layers"]:
             lm = None if spans is None else [clock()]
-            x = B.paged_block_decode(
-                lp, cfg, x, k_pool[i], None if v_pool is None else v_pool[i],
-                slots, tally=tally, marks=lm)
+            if "kda" in lp:
+                x = B.kda_block_decode(lp, cfg, x, state[0][n_kda],
+                                       state[1][n_kda], slots, tally=tally,
+                                       marks=lm)
+                n_kda += 1
+            else:
+                x = B.paged_block_decode(
+                    lp, cfg, x, k_pool[n_attn],
+                    None if v_pool is None else v_pool[n_attn], pages,
+                    tally=tally, marks=lm)
+                n_attn += 1
             if spans is not None:
-                layers.append(lm)
+                layers.append(("kda" in lp, lm))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x[:, 0])
         if spans is not None:
@@ -655,16 +729,16 @@ class LM:
             # experts' ends, the FFN's end.
             marks.append(clock())
             spans.add("decode.embed", marks[0], marks[1])
-            for t0, p0, p1, t1, *inner, t2 in layers:
+            for kda, (t0, p0, p1, t1, *inner, t2) in layers:
                 spans.add("decode.attn", t0, t1)
-                spans.add("decode.paged", p0, p1)
+                spans.add("decode.kda" if kda else "decode.paged", p0, p1)
                 spans.add("decode.ffn", t1, t2)
                 for name, a, z in zip(("decode.router", "decode.experts",
                                        "decode.shared"), [t1] + inner,
                                       inner):
                     spans.add(name, a, z)
-            spans.add("decode.head", layers[-1][-1] if layers else marks[1],
-                      marks[-1])
+            spans.add("decode.head",
+                      layers[-1][1][-1] if layers else marks[1], marks[-1])
         return logits
 
 

@@ -24,6 +24,16 @@ chosen renormalised by their sum plus 1e-20 and multiplied by
 experts adds their SwiGLU (``"shared"``, width ``n_shared_experts *
 d_ff_expert``) on every token to the routed experts' sum.
 
+Expert parallelism (``cfg.moe.experts_held = (lo, hi)``, the port's own):
+the layer holds the routed experts ``lo..hi-1`` of ``num_experts``
+(``w_gate`` / ``w_up`` / ``w_down`` stacks of ``hi - lo``), routes every
+token over all ``num_experts`` with the full router, and computes only the
+slots that land on its experts: the others are sorted past the last held
+expert's rows, which the grouped products leave zero, so nothing is read
+on the host.  What the experts held elsewhere add is left out; the shared
+experts are added once.  ``None`` (the default) holds every expert and
+runs the code of a model without the field.
+
 ``moe_ffn``'s ``tally`` (an int64 device tensor ``[2]``) adds each call's
 routed (token, slot) pairs and the experts that got at least one row,
 by device operations, so a replayed CUDA graph keeps counting; its
@@ -117,14 +127,15 @@ def moe_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
                         device=gen.device)
         return w.mul_(scale).to(dt)
 
+    mo = cfg.moe
+    lo, hi = getattr(mo, "experts_held", None) or (0, e)
     p = {
         "router": L.dense_init(gen, d, e, torch.float32),
-        "w_up": normal((e, d, ff), 1.0 / math.sqrt(d)),
-        "w_down": normal((e, ff, d), 1.0 / math.sqrt(ff)),
+        "w_up": normal((hi - lo, d, ff), 1.0 / math.sqrt(d)),
+        "w_down": normal((hi - lo, ff, d), 1.0 / math.sqrt(ff)),
     }
     if glu:
-        p["w_gate"] = normal((e, d, ff), 1.0 / math.sqrt(d))
-    mo = cfg.moe
+        p["w_gate"] = normal((hi - lo, d, ff), 1.0 / math.sqrt(d))
     if getattr(mo, "scoring", "softmax") == "sigmoid":
         # The score-correction bias, fp32 beside the router.
         p["bias"] = normal((e,), 0.05).float()
@@ -187,6 +198,8 @@ def moe_ffn(p, cfg: ModelConfig, x, *, _experts=None, tally=None,
     version through it); ``tally`` and ``marks`` as the module docstring
     says (the ragged dispatch only)."""
     if cfg.moe_impl == "capacity":
+        if getattr(cfg.moe, "experts_held", None) is not None:
+            raise ValueError("the capacity dispatch holds every expert")
         y, aux = moe_ffn_capacity(p, cfg, x, _experts=_experts)
     else:
         y, aux = moe_ffn_ragged(p, cfg, x, _experts=_experts, tally=tally,
@@ -200,18 +213,28 @@ def moe_ffn(p, cfg: ModelConfig, x, *, _experts=None, tally=None,
 
 def moe_ffn_ragged(p, cfg: ModelConfig, x, *, _experts=None, tally=None,
                    marks=None):
-    """Dropless top-k: every (token, slot) pair through its expert."""
+    """Dropless top-k: every (token, slot) pair through its expert.  On a
+    layer that holds the experts ``[lo, hi)`` (see the module docstring)
+    the slots routed elsewhere sort last, past the held experts' rows, and
+    come back zero."""
     b, s, d = x.shape
     n, k, e = b * s, cfg.moe.top_k, cfg.moe.num_experts
+    held = getattr(cfg.moe, "experts_held", None)
     xf = x.reshape(n, d)
     gates, experts, aux = moe_route(p, cfg, x)
     flat = experts.reshape(-1)  # [n*k]
+    if held is not None:
+        lo, hi = held
+        e = hi - lo
+        local = flat - lo
+        mine = (local >= 0) & (local < e)
+        flat = torch.where(mine, local, e)  # elsewhere: sorted last
     order = torch.argsort(flat, stable=True)
     xs = xf.index_select(0, order // k)  # each slot's token, sorted
-    counts = _counts(flat, e)
+    counts = _counts(flat, e) if held is None else _counts(flat, e + 1)[:e]
     offs = counts.cumsum(0, dtype=torch.int32)
     if tally is not None:
-        tally[0].add_(n * k)
+        tally[0].add_(n * k if held is None else mine.sum())
         tally[1].add_((counts > 0).sum())
     if marks is not None:
         marks.append(clock())

@@ -17,9 +17,15 @@ layers' grouped products the hand-written kernels of
 with multi-head latent attention keeps one latent a token and layer and
 no V, read by :func:`repro_torch.kernels.ops.paged_mla_attention`.
 Allocation, prefix sharing, S->M and copy-on-write go through MIND
-whatever a page holds.  Scheduler: admit-until-full continuous batching
-with page-granular allocation, exactly as the reference schedules.  The
-engine runs on CUDA unless the caller passes ``device="cpu"``.
+whatever a page holds.  A model with recurrent layers (Kimi-Linear's KDA:
+its layout has a ``state``) also gets a state slot a request from the
+pool: taken at admit (a MIND page of the request's session, mapped and
+written once), filled with the prefill's final state and conv tail,
+updated in place by every decode step (the batch's slot indices an input
+of the step, and of its graph), and released (unmapped) at retire.
+Scheduler: admit-until-full continuous batching with page-granular
+allocation, exactly as the reference schedules.  The engine runs on CUDA
+unless the caller passes ``device="cpu"``.
 
 On a CUDA device the decode step replays a CUDA graph: ``_decode_fn``
 keeps one graph of the eager step ``_decode_step`` per (batch, padded
@@ -81,9 +87,7 @@ class _Graph:
     ``ops`` tallies (``(counts, key, n)``) that its capture made."""
 
     graph: torch.cuda.CUDAGraph
-    tokens: torch.Tensor
-    lengths: torch.Tensor
-    tables: torch.Tensor
+    inputs: list  # tokens, lengths, tables and, with state slots, slots
     logits: torch.Tensor
     tallies: list
 
@@ -98,11 +102,20 @@ class Request:
     generated: list = field(default_factory=list)
     pages: list = field(default_factory=list)  # physical page ids
     length: int = 0
+    slot: int | None = None  # the pool's state slot (recurrent models)
     done: bool = False
     stamps: Stamps | None = None  # host times, with a span recorder
 
 
 class PagedServer:
+    """Continuous batching of ``model`` over a :class:`PagedKVPool` of
+    ``num_pages`` pages of ``page_tokens`` tokens (their layout the
+    model's ``paged_layout()``), at most ``max_batch`` requests decoding
+    at once.  A model whose layout has a ``state`` (recurrent layers)
+    gets ``max_batch`` state slots in the pool, one a running request,
+    each a MIND page of its session mapped at admit and unmapped at
+    retire (see the module docstring)."""
+
     def __init__(self, model: LM, params, *, max_batch: int = 8,
                  page_tokens: int = 16, num_pages: int = 512,
                  prefix_share: bool = True, num_replicas: int = 1,
@@ -124,14 +137,16 @@ class PagedServer:
         self.page_tokens = page_tokens
         self.prefix_share = prefix_share
         self.spans = spans
+        layout = {"num_layers": cfg.num_layers, **model.paged_layout()}
+        if "state" in layout:
+            layout["state_slots"] = max_batch
         self.pool = PagedKVPool(
-            num_layers=cfg.num_layers,
             num_pages=num_pages,
             page_tokens=page_tokens,
             num_replicas=num_replicas,
             device=self.device,
             spans=spans,
-            **model.paged_layout(),
+            **layout,
         )
         # moe.slots, moe.experts_touched: decode's, then prefill's.
         self._moe_tally = (torch.zeros(4, dtype=torch.int64,
@@ -217,6 +232,9 @@ class PagedServer:
             else:
                 self.pool.read_access(pid, req.session)
             req.pages.append(pid)
+        if self.pool.state_pool is not None:
+            req.slot = self.pool.alloc_state(req.session)
+            self.pool.write_state(req.slot, *self.model.paged_state(cache))
         req.length = s
         if sp is not None:
             sp.begin("prefill.first_token", sp.end())
@@ -230,12 +248,14 @@ class PagedServer:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def _decode_fn(self, params, k_pool, v_pool, tokens, lengths,
-                   block_tables):
+                   block_tables, slots=None):
         """Logits ``[B, V]`` of one decode step.  The new token's K/V are
         written into ``k_pool`` / ``v_pool`` in place; both are returned,
-        as the reference returns its updated pools.  On the graph path
-        (see the module's docstring) the logits are the graph's static
-        output, overwritten by the next call."""
+        as the reference returns its updated pools.  ``slots [B]`` (int32)
+        name the sequences' state slots, for a pool that has them (updated
+        in place).  On the graph path (see the module's docstring) the
+        logits are the graph's static output, overwritten by the next
+        call."""
         sp = self.spans
         pool = self.pool
         if (self.device.type != "cuda" or params is not self.params
@@ -244,23 +264,25 @@ class PagedServer:
             if sp is not None:
                 sp.count("decode.eager")
             return self._decode_step(params, k_pool, v_pool, tokens,
-                                     lengths, block_tables, sp)
+                                     lengths, block_tables, sp, slots)
         if sp is not None:
             t0 = clock()
         key = (tokens.shape[0], block_tables.shape[1])
         g = self._graphs.get(key)
+        inputs = [tokens, lengths, block_tables]
+        if slots is not None:
+            inputs.append(slots)
         if g is None:
             out = self._decode_step(params, k_pool, v_pool, tokens, lengths,
-                                    block_tables)
-            self._graphs[key] = self._capture(tokens, lengths, block_tables)
+                                    block_tables, None, slots)
+            self._graphs[key] = self._capture(inputs)
             self.graph_stats["captures"] += 1
             if sp is not None:
                 sp.add("decode.capture", t0, clock())
                 sp.count("decode.graph_capture")
             return out
-        g.tokens.copy_(tokens)
-        g.lengths.copy_(lengths)
-        g.tables.copy_(block_tables)
+        for static, new in zip(g.inputs, inputs):
+            static.copy_(new)
         g.graph.replay()
         for counts, key, n in g.tallies:
             counts[key] += n
@@ -270,36 +292,43 @@ class PagedServer:
             sp.count("decode.graph_replay")
         return g.logits, k_pool, v_pool
 
-    def _capture(self, tokens, lengths, block_tables) -> _Graph:
+    def _capture(self, inputs) -> _Graph:
         """The eager step on the server's params and pool, captured for
-        the call's shapes into a new graph.  The capture launches
+        the shapes of ``inputs`` (tokens, lengths, block tables and, with
+        state slots, the slots) into a new graph.  The capture launches
         nothing, so the tallies it made are taken back and kept for the
         replays."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        static = [t.clone() for t in (tokens, lengths, block_tables)]
+        static = [t.clone() for t in inputs]
         before = [dict(c) for c in K.COUNTS]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool):
             logits, _, _ = self._decode_step(self.params, self.pool.k_pool,
-                                             self.pool.v_pool, *static)
+                                             self.pool.v_pool, *static[:3],
+                                             None, *static[3:])
         tallies = []
         for counts, was in zip(K.COUNTS, before):
             for key, n in was.items():
                 if counts[key] != n:
                     tallies.append((counts, key, counts[key] - n))
                     counts[key] = n
-        return _Graph(graph, *static, logits, tallies)
+        return _Graph(graph, static, logits, tallies)
 
     def _decode_step(self, params, k_pool, v_pool, tokens, lengths,
-                     block_tables, sp=None):
+                     block_tables, sp=None, slots=None):
         """The eager decode step (``_decode_fn``'s contract): the model's
-        ``paged_decode_step``, recording its spans in ``sp`` when given."""
+        ``paged_decode_step`` (on the pool's state slots ``slots`` when
+        given), recording its spans in ``sp`` when given."""
+        pool = self.pool
         logits = self.model.paged_decode_step(
             params, k_pool, v_pool, tokens, lengths, block_tables,
             page_tokens=self.page_tokens,
             tally=None if self._moe_tally is None else self._moe_tally[:2],
-            spans=sp)
+            spans=sp,
+            state=(None if slots is None
+                   else (pool.state_pool, pool.conv_pool)),
+            slots=slots)
         return logits, k_pool, v_pool
 
     # ------------------------------------------------------------------ #
@@ -355,11 +384,15 @@ class PagedServer:
         tokens_d = torch.from_numpy(tokens).to(dev)
         lengths_d = torch.from_numpy(lengths).to(dev)
         tables_d = torch.from_numpy(block_tables).to(dev)
+        extra = {}
+        if self.pool.state_pool is not None:
+            extra["slots"] = torch.tensor([r.slot for r in self.active],
+                                          dtype=torch.int32).to(dev)
         if sp is not None:
             sp.begin("decode.dispatch", sp.end())
         logits, self.pool.k_pool, self.pool.v_pool = self._decode_fn(
             self.params, self.pool.k_pool, self.pool.v_pool,
-            tokens_d, lengths_d, tables_d)
+            tokens_d, lengths_d, tables_d, **extra)
         if sp is not None:
             sp.begin("decode.sync", sp.end())
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()  # first maximum
@@ -375,6 +408,8 @@ class PagedServer:
                 r.done = True
                 for pid in r.pages:
                     self.pool.free_page(pid, r.session)
+                if r.slot is not None:
+                    self.pool.free_state(r.slot, r.session)
                 self.finished.append(r)
             else:
                 still.append(r)

@@ -141,7 +141,11 @@ def test_every_port_module_is_copied_trimmed_or_ported():
               # The port's own: latent attention's config (a subclass of
               # the copied base), the model that takes it, its kernel.
               "configs/mla.py", "configs/moonlight_16b_a3b.py",
-              "kernels/paged_mla.py"}
+              "kernels/paged_mla.py",
+              # The port's own: Kimi Delta Attention (its config, the
+              # layer, its decode kernel's plain version).
+              "configs/kimi_linear_48b_a3b.py", "models/kda.py",
+              "kernels/kda_decode.py"}
     have = {str(p.relative_to(ROOT / "repro_torch"))
             for p in (ROOT / "repro_torch").rglob("*.py")}
     assert have == set(COPIES) | set(TRIMMED) | ported

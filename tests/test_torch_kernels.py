@@ -284,12 +284,16 @@ def test_wrappers_count_no_launch_on_cpu():
     P.paged_mla_attention(torch.zeros((1, 2, 8)), torch.zeros((2, 4, 8)),
                           torch.zeros((1, 2), dtype=torch.int32),
                           torch.ones(1, dtype=torch.int32), dv=4, scale=1.0)
+    z = torch.zeros((1, 2, 4))
+    P.kda_decode(z, z, z, z, torch.zeros((1, 2)), torch.zeros((2, 2, 4, 4)),
+                 torch.zeros(1, dtype=torch.int32), scale=0.5)
     assert P.LAUNCHES == {"protect_check": 0, "translate_lookup": 0,
                           "lane_replay": 0, "paged_attention": 0,
                           "msi_transition": 0, "flash_attention": 0,
                           "moe_experts": 0, "moe_experts_backward": 0,
-                          "paged_mla_attention": 0}
+                          "paged_mla_attention": 0, "kda_decode": 0}
     assert P.MLA_ROUTES == {"mma": 0, "simt": 0}
+    assert P.MLA_HEAD_TILES == {"h16": 0, "h32": 0}
 
 
 def test_wrappers_validate_inputs():

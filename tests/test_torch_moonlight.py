@@ -380,6 +380,45 @@ def test_moe_counters_and_spans(small):
         assert any(a <= s and e <= z for _, a, z in model)
 
 
+def test_no_kda_layer_and_every_expert_held_takes_no_state_slot(small,
+                                                                monkeypatch):
+    """A model without KDA layers, holding every expert, gets a pool with
+    no state slot and no state counts, and makes one MIND mapping a page
+    allocated and one unmapping a page freed, as before state slots
+    existed.  Its MoE layers compute as a layer told it holds experts
+    0..E-1 does, bit for bit."""
+    hf, mcfg, w = small
+    srv = PagedServer(LM(mcfg, device="cpu"), w, device="cpu", max_batch=3,
+                      page_tokens=4, num_pages=128)
+    calls = {"sys_mmap": 0, "sys_munmap": 0}
+    for name in calls:
+        inner = getattr(srv.pool.cp, name)
+
+        def counted(*a, _inner=inner, _name=name, **k):
+            calls[_name] += 1
+            return _inner(*a, **k)
+        monkeypatch.setattr(srv.pool.cp, name, counted)
+    for p in _prompts(hf["vocab_size"]):
+        srv.submit(p, max_new_tokens=4)
+    stats = srv.run_until_done()
+    assert srv.pool.state_pool is None and srv.pool.conv_pool is None
+    assert srv.pool.states_in_use == 0
+    assert set(stats) == {"steps", "tokens", "alloc", "free", "prefix_hits",
+                          "cow", "invalidations", "directory_entries"}
+    assert all(r.slot is None for r in srv.finished)
+    assert calls == {"sys_mmap": stats["alloc"], "sys_munmap": stats["free"]}
+    held = dataclasses.replace(mcfg, moe=dataclasses.replace(
+        mcfg.moe, experts_held=(0, mcfg.moe.num_experts)))
+    p = w["layers"][1]["moe"]
+    x = torch.randn(2, 9, hf["hidden_size"],
+                    generator=torch.Generator().manual_seed(4))
+    t0, t1 = torch.zeros(2, dtype=torch.int64), torch.zeros(2,
+                                                           dtype=torch.int64)
+    y0 = M.moe_ffn(p, mcfg, x, tally=t0)[0]
+    y1 = M.moe_ffn(p, held, x, tally=t1)[0]
+    assert torch.equal(y0, y1) and torch.equal(t0, t1)
+
+
 def test_softmax_routing_is_unchanged():
     """A config without the sigmoid fields routes by the softmax path and
     draws no bias and no shared experts."""
